@@ -7,9 +7,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. Build every ``clip_mixer_tpu_torch/csrc/*.cu`` with ``nvcc`` (one process
    per source, all started together) and hold each kernel against its plain
-   PyTorch version on the card at the shapes the serving path gives it; then
-   a small f32 model with the fused channel mix, on the card against the
-   same model on the CPU.
+   PyTorch version on the card at the shapes the serving paths give it
+   (``ln_mlp``, ``preprocess``, and ``fused_mixer_block_tbd`` at both towers'
+   buckets 128 and 8, a B no batch tile divides, and f32); one f32 backward
+   through ``mixer_block_fused`` and through ``ln_mlp`` against plain
+   autograd; then a small f32 model with the fused channel mix, and the
+   same model with its towers through ``mixer_tower_fused``, on the card
+   against the CPU.
 2. The main path, with every launch counter set to 0 first: a full-width
    Mixer-B/32 (bf16, ``fused_mlp=True``, random weights from seed 0) behind
    an ``InferenceEngine`` that takes 256x256 uint8 images, warmed up, then
@@ -19,7 +23,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``encode_image`` at batch 128. Each call's launches are checked, and the
    features against the same weights with the plain channel mix
    (``fused_mlp=False``): cosine >= 0.999.
-3. Time each kernel and its plain version with CUDA events.
+2b. The fused-block path, with every launch counter set to 0 first: the
+   same Mixer-B/32 with ``fused_mlp=False`` and both towers' ``forward``
+   bound to ``mixer_tower_fused`` (the model's own ``encode_image`` /
+   ``encode_text`` run unchanged), warmed up, then ``encode_text`` of 5 and
+   40 captions, ``encode_image_arrays`` of 7 and 100 images and the kernel
+   front end at batch 128: 12 block launches per tower call and none of
+   ``ln_mlp``; features against the plain towers: cosine >= 0.999.
+3. Time each kernel and its plain version with CUDA events, and each tower
+   at bucket 128 three ways: through ``mixer_tower_fused``, with
+   ``fused_mlp=True``, and plain.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -28,6 +41,8 @@ Without a CUDA device it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
 import subprocess
 import sys
@@ -63,6 +78,17 @@ LN_MLP_CASES = [  # (label, R, W, H, dtype): the towers at buckets 128 and 8, a 
     ("f32", 8 * 50, 768, 3072, torch.float32),
 ]
 PREPROCESS_CASES = [("bf16", 128, torch.bfloat16), ("f32", 128, torch.float32)]
+BLOCK_CASES = [  # (label, B, T, D, dtype): both towers at buckets 128 and 8, a B no batch tile divides, f32
+    ("vision", 128, 50, 768, torch.bfloat16),
+    ("text", 128, 77, 512, torch.bfloat16),
+    ("vision_b8", 8, 50, 768, torch.bfloat16),
+    ("text_b12", 12, 77, 512, torch.bfloat16),
+    ("f32", 8, 50, 768, torch.float32),
+]
+# The residual branches' last biases: a kernel that drops either must fail
+# the bf16 branch check.
+BLOCK_PLANTED = ("token_mix_seq.lin2.bias", "channel_mix_seq.lin4.bias")
+GRAD_TOL = dict(atol=1e-4, rtol=1e-3)  # tests/test_pallas_kernels.py:121
 
 TEXTS = [
     f"a {adj} photo of a {noun}"
@@ -204,21 +230,120 @@ def check_preprocess(dev):
     return results
 
 
+def block_case(label, B, T, D, dtype, dev, seed):
+    """A MixerBlock at its tower's init scales (LN parameters perturbed so
+    the affine counts), in ``dtype`` on ``dev``, and x [T, B, D]."""
+    from clip_mixer_tpu_torch.models.mixer import MixerBlock, init_mixer_block
+
+    g = torch.Generator().manual_seed(seed)
+    block = MixerBlock(D, T)
+    init_mixer_block(block, text_tower=label.startswith("text"), n_layers=12, generator=g)
+    with torch.no_grad():
+        for ln in (block.layerNorm1, block.layerNorm2):
+            ln.weight.add_(0.1 * torch.randn(D, generator=g))
+            ln.bias.add_(0.1 * torch.randn(D, generator=g))
+    x = torch.randn(T, B, D, generator=g)
+    return block.to(device=dev, dtype=dtype), x.to(device=dev, dtype=dtype)
+
+
+def block_cost(B, T, D, U, H, dtype):
+    """Bytes and operations the JAX CostEstimate counts (block_kernel.py:181-185)."""
+    e = torch.finfo(dtype).bits // 8
+    n_bytes = e * (2 * B * T * D + 2 * T * U + 2 * D * H + 5 * D + U + T + H)  # x, out, weights, vectors
+    return n_bytes, 2 * B * D * 2 * T * U + 2 * B * T * 2 * D * H
+
+
+def check_mixer_block(dev):
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import fused_mixer_block_tbd, mixer_block_plain
+
+    results = {}
+    for label, B, T, D, dtype in BLOCK_CASES:
+        block, x = block_case(label, B, T, D, dtype, dev, seed=B * T)
+        block.requires_grad_(False)
+        got = fused_mixer_block_tbd(block, x)
+        torch.cuda.synchronize()
+        want = mixer_block_plain(block, x)
+        err, rel = max_abs(got, want), branch_err(got, want, x)
+        case = dict(B=B, T=T, D=D, U=4 * T, H=4 * D, dtype=str(dtype), max_abs_err=err, rel_err=rel)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **LN_MLP_F32_TOL)
+            case["tol"] = "allclose atol 2e-4 rtol 1e-3 (f32 sums in another order)"
+        else:
+            require(rel <= LN_MLP_BRANCH_TOL, f"fused_mixer_block {label}: branch error {rel} > {LN_MLP_BRANCH_TOL}")
+            case["planted_fault_err"] = {}
+            for bias in BLOCK_PLANTED:
+                faulty = copy.deepcopy(block)
+                faulty.get_parameter(bias).zero_()
+                fault = branch_err(mixer_block_plain(faulty, x), want, x)
+                require(fault > LN_MLP_BRANCH_TOL, f"fused_mixer_block {label}: the check passes {bias} = 0")
+                case["planted_fault_err"][bias] = fault
+            case["tol"] = f"branch (out - x) relative Frobenius <= {LN_MLP_BRANCH_TOL} (bf16, same rounding points)"
+        results[label] = dict(case, block=block, x=x)
+        log(f"fused_mixer_block {label} B={B} T={T} D={D} {dtype}: max_abs {err:.3g} branch rel {rel:.3g} ok")
+    return results
+
+
+def check_gradients(dev):
+    """One f32 backward through each kernel's autograd wrapper, against plain autograd."""
+    from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import (
+        fused_mixer_block_tbd,
+        mixer_block_fused,
+        mixer_block_plain,
+    )
+
+    block, x = block_case("vision", 8, 50, 768, torch.float32, dev, seed=5)
+    x.requires_grad_()
+    args = [t.requires_grad_() for t in ln_mlp_args(400, 768, 3072, torch.float32, dev, seed=6)]
+    g = torch.Generator().manual_seed(7)
+    for name, wrapper, fused, plain, inputs in (
+        ("mixer_block_fused", fused_mixer_block_tbd, lambda: mixer_block_fused(block, x),
+         lambda: mixer_block_plain(block, x), [x, *block.parameters()]),
+        ("ln_mlp", ln_mlp, lambda: ln_mlp(*args), lambda: ln_mlp_plain(*args), args),
+    ):
+        before = wrapper.launches
+        out = fused()
+        require(wrapper.launches == before + 1, f"{name}: the forward did not launch the kernel")
+        grad = torch.randn(out.shape, generator=g).to(dev)
+        got = torch.autograd.grad(out, inputs, grad)
+        want = torch.autograd.grad(plain(), inputs, grad)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **GRAD_TOL)
+        log(f"{name} f32 backward: {len(inputs)} gradients match plain autograd")
+
+
+def route_towers(model, fused: bool):
+    """Bind (or unbind) both towers' forward to ``mixer_tower_fused``; the
+    model's state-dict keys and config do not change."""
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import mixer_tower_fused
+
+    for tower in (model.visual.transformer, model.transformer):
+        if fused:
+            tower.forward = functools.partial(mixer_tower_fused, tower)
+        else:
+            del tower.forward
+
+
 def check_small_model(dev):
-    """A two-layer f32 model with the fused channel mix: card against CPU."""
+    """A two-layer f32 model with the fused channel mix, then with its towers
+    through ``mixer_tower_fused``: card against CPU."""
     from clip_mixer_tpu_torch import CLIP, PRESETS
     from clip_mixer_tpu_torch.text.tokenize import tokenize
 
-    cfg = PRESETS["mixer-debug"].replace(fused_mlp=True)
-    models = {d: CLIP(cfg, device=d, generator=torch.Generator().manual_seed(3)) for d in ("cpu", dev)}
-    g = torch.Generator().manual_seed(4)
-    images = torch.randn(4, cfg.image_resolution, cfg.image_resolution, 3, generator=g)
-    text = torch.from_numpy(tokenize(TEXTS[:4], cfg.context_length, truncate=True))
-    with torch.inference_mode():
-        out = {d: (m.encode_image(images.to(d)).cpu(), m.encode_text(text.to(d)).cpu()) for d, m in models.items()}
-    for got, want in zip(out[dev], out["cpu"]):
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
-    log("mixer-debug f32 fused model: card matches CPU")
+    res = PRESETS["mixer-debug"].image_resolution
+    images = torch.randn(4, res, res, 3, generator=torch.Generator().manual_seed(4))
+    for what, over, fused_towers in (("fused channel mix", dict(fused_mlp=True), False), ("fused towers", {}, True)):
+        cfg = PRESETS["mixer-debug"].replace(**over)
+        models = {d: CLIP(cfg, device=d, generator=torch.Generator().manual_seed(3)) for d in ("cpu", dev)}
+        for m in models.values():
+            if fused_towers:
+                route_towers(m, True)
+        text = torch.from_numpy(tokenize(TEXTS[:4], cfg.context_length, truncate=True))
+        with torch.inference_mode():
+            out = {d: (m.encode_image(images.to(d)).cpu(), m.encode_text(text.to(d)).cpu()) for d, m in models.items()}
+        for got, want in zip(out[dev], out["cpu"]):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+        log(f"mixer-debug f32 model, {what}: card matches CPU")
 
 
 # ---- phase 2: the main path -------------------------------------------------
@@ -228,8 +353,9 @@ class Counters:
     def __init__(self):
         from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
         from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp
+        from clip_mixer_tpu_torch.ops.kernels.mixer_block import fused_mixer_block_tbd
 
-        self.wrappers = {"ln_mlp": ln_mlp, "preprocess": kpre.preprocess}
+        self.wrappers = {"ln_mlp": ln_mlp, "preprocess": kpre.preprocess, "fused_mixer_block": fused_mixer_block_tbd}
 
     def reset(self):
         for w in self.wrappers.values():
@@ -335,6 +461,7 @@ def main_path(dev, counters):
     c = expect(counters, c, "front end", ln_mlp=per_tower["image"], preprocess=1)
     launches = counters.read()
     log(f"main path launches: {launches}")
+    require(launches["fused_mixer_block"] == 0, "the fused_mlp path launched the whole-block kernel")
 
     # reference: the same weights with the plain channel mix, and the "torch" front end
     ref_model = CLIP(cfg.replace(fused_mlp=False), device=dev, generator=torch.Generator().manual_seed(0))
@@ -366,18 +493,130 @@ def main_path(dev, counters):
     return summary, launches
 
 
+# ---- phase 2b: the fused-block path ------------------------------------------
+
+
+def fused_block_path(dev, counters):
+    """Full-width Mixer-B/32 bf16 served with both towers through
+    ``mixer_tower_fused``; returns (summary, launches, the model)."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+
+    cfg = PRESETS["mixer-b32"]
+    require(not cfg.fused_mlp, "the fused-block path runs the plain channel mix's config")
+    per_tower = {"image": cfg.vision_layers, "text": cfg.text_layers}
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (128, 256, 256, 3), dtype=np.uint8)
+    summary = {}
+
+    model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    engine = InferenceEngine(model, input_hw=(256, 256))
+    route_towers(model, True)
+    counters.reset()
+    c = counters.read()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    summary["warmup_s"] = time.perf_counter() - t0
+    c = expect(counters, c, "warmup", fused_mixer_block=len(engine.buckets) * (per_tower["image"] + per_tower["text"]),
+               ln_mlp=0)
+
+    feats = {}
+    for n in (5, 40):
+        t0 = time.perf_counter()
+        feats[f"text{n}"] = engine.encode_text(TEXTS[:n])
+        summary[f"encode_text_{n}_ms"] = (time.perf_counter() - t0) * 1e3
+        check_features(feats[f"text{n}"], n, cfg.embed_dim, f"fused towers: encode_text({n})")
+        c = expect(counters, c, f"fused towers: encode_text({n})", fused_mixer_block=per_tower["text"], ln_mlp=0)
+    for n in (7, 100):
+        t0 = time.perf_counter()
+        feats[f"image{n}"] = engine.encode_image_arrays(images[:n])
+        summary[f"encode_image_{n}_ms"] = (time.perf_counter() - t0) * 1e3
+        check_features(feats[f"image{n}"], n, cfg.embed_dim, f"fused towers: encode_image_arrays({n})")
+        c = expect(counters, c, f"fused towers: encode_image_arrays({n})", fused_mixer_block=per_tower["image"],
+                   ln_mlp=0, preprocess=0)
+
+    pre_kernel = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="kernel")
+    with torch.inference_mode():
+        pixels = pre_kernel(torch.from_numpy(images).to(dev))
+        front = model.encode_image(pixels).float()
+    torch.cuda.synchronize()
+    c = expect(counters, c, "fused towers: front end", fused_mixer_block=per_tower["image"], ln_mlp=0, preprocess=1)
+    launches = counters.read()
+    log(f"fused-block path launches: {launches}")
+
+    # reference: the same model and inputs with the plain towers
+    route_towers(model, False)
+    with torch.inference_mode():
+        front_ref = model.encode_image(pixels).float()
+    cos = {
+        "text40": min_cosine(feats["text40"], engine.encode_text(TEXTS[:40])),
+        "image100": min_cosine(feats["image100"], engine.encode_image_arrays(images[:100])),
+        "front_end128": float(torch.nn.functional.cosine_similarity(front, front_ref, dim=-1).min()),
+    }
+    require(counters.read() == launches, "the plain towers launched a kernel")
+    for k, v in cos.items():
+        require(v >= COSINE_MIN, f"{k}: fused towers vs plain cosine {v} < {COSINE_MIN}")
+    summary["min_cosine_vs_plain"] = cos
+    summary["launches"] = launches
+    log(f"fused towers vs plain towers, min cosine: {cos}")
+    del engine
+    return summary, launches, model
+
+
 # ---- phase 3: timing ----------------------------------------------------------
 
 
-def time_kernels(ln_cases, pre_cases, launches):
+def time_towers(model, dev):
+    """Each tower at bucket 128, bf16: through ``mixer_tower_fused``, through
+    ``fused_mlp=True`` (``ln_mlp``), and plain; in turns A B C C B A, each
+    the mean of 10 back-to-back calls."""
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import mixer_tower_fused
+
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(8)
+    rows = {}
+    for name, tower, T, D in (("vision", model.visual.transformer, cfg.vision_tokens, cfg.vision_width),
+                              ("text", model.transformer, cfg.context_length, cfg.text_width)):
+        x = torch.randn(128, T, D, generator=g).to(device=dev, dtype=torch.bfloat16)
+
+        ways = {
+            "fused_block_ms": lambda: mixer_tower_fused(tower, x),
+            "fused_mlp_ms": lambda: tower(x),  # with every block's fused_mlp set
+            "plain_ms": lambda: tower(x),
+        }
+        times = {k: [] for k in ways}
+        with torch.inference_mode():
+            for k in [*ways, *reversed(ways)]:
+                for block in tower.mixBlocks:
+                    block.fused_mlp = k == "fused_mlp_ms"
+                times[k].append(cuda_ms(ways[k], iters=10))
+        rows[name] = {k: sum(v) / len(v) for k, v in times.items()}
+        rows[name]["each_run_ms"] = times
+        log(f"tower {name} at bucket 128: {rows[name]}")
+    return rows
+
+
+
+def time_kernels(ln_cases, pre_cases, block_cases, launches):
     from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
     from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import fused_mixer_block_tbd, mixer_block_plain
 
     rows = []
-    for kernel, cases, main_label in (("ln_mlp", ln_cases, "vision"), ("preprocess", pre_cases, "bf16")):
+    for kernel, cases, main_label in (
+        ("ln_mlp", ln_cases, "vision"), ("preprocess", pre_cases, "bf16"), ("fused_mixer_block", block_cases, "vision"),
+    ):
         timed = {}
         for label, case in cases.items():
-            if kernel == "ln_mlp":
+            if kernel == "fused_mixer_block":
+                block, x = case.pop("block"), case.pop("x")
+                ms = cuda_ms(lambda: fused_mixer_block_tbd(block, x), iters=20)
+                plain_ms = cuda_ms(lambda: mixer_block_plain(block, x), iters=5)
+                n_bytes, n_ops = block_cost(case["B"], case["T"], case["D"], case["U"], case["H"], x.dtype)
+                dtype = x.dtype
+            elif kernel == "ln_mlp":
                 args = case.pop("args")
                 ms = cuda_ms(lambda: ln_mlp(*args), iters=20)
                 plain_ms = cuda_ms(lambda: ln_mlp_plain(*args), iters=5)
@@ -396,10 +635,15 @@ def time_kernels(ln_cases, pre_cases, launches):
                                 bytes=n_bytes, operations=n_ops)
             log(f"{kernel} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by})")
         main = timed.pop(main_label)
-        source = {"ln_mlp": "clip_mixer_tpu_torch/csrc/ln_mlp.cu", "preprocess": "clip_mixer_tpu_torch/csrc/preprocess.cu"}
+        source = {
+            "ln_mlp": "clip_mixer_tpu_torch/csrc/ln_mlp.cu",
+            "preprocess": "clip_mixer_tpu_torch/csrc/preprocess.cu",
+            "fused_mixer_block": "clip_mixer_tpu_torch/csrc/mixer_block.cu",
+        }
         replaces = {
             "ln_mlp": "clip_mixer_tpu/ops/pallas/mlp_kernel.py:61",
             "preprocess": "clip_mixer_tpu/ops/pallas/preprocess_kernel.py:72",
+            "fused_mixer_block": "clip_mixer_tpu/ops/pallas/block_kernel.py:127",
         }
         rows.append({
             "name": kernel,
@@ -411,7 +655,7 @@ def time_kernels(ln_cases, pre_cases, launches):
             **main,
             # no single PyTorch call computes the same function (a fused
             # LN + two-layer MLP; a cropped antialiased bicubic resize of
-            # uint8 NHWC with CLIP normalisation)
+            # uint8 NHWC with CLIP normalisation; a whole mixer block)
             "library_ms": None,
             "other_cases": timed,
         })
@@ -448,17 +692,29 @@ def main() -> int:
 
     ln_cases = check_ln_mlp(dev)
     pre_cases = check_preprocess(dev)
+    block_cases = check_mixer_block(dev)
+    check_gradients(dev)
     check_small_model(dev)
     torch.cuda.synchronize()
 
     counters = Counters()
     summary, launches = main_path(dev, counters)
-    for name, n in launches.items():
-        require(n > 0, f"the main path never launched {name}")
+    for name in ("ln_mlp", "preprocess"):
+        require(launches[name] > 0, f"the main path never launched {name}")
     summary["build_s"] = build_s
     emit({"main_path": summary})
 
-    rows = time_kernels(ln_cases, pre_cases, launches)
+    block_summary, block_launches, model = fused_block_path(dev, counters)
+    for name in ("fused_mixer_block", "preprocess"):
+        require(block_launches[name] > 0, f"the fused-block path never launched {name}")
+    emit({"fused_block_path": block_summary})
+
+    emit({"towers_bucket128_ms": time_towers(model, dev)})
+    del model
+    # each kernel's launches on the path that carries it
+    path_launches = {"ln_mlp": launches["ln_mlp"], "preprocess": launches["preprocess"],
+                     "fused_mixer_block": block_launches["fused_mixer_block"]}
+    rows = time_kernels(ln_cases, pre_cases, block_cases, path_launches)
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

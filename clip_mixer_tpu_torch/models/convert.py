@@ -5,21 +5,78 @@ blocks stacked along a leading layer axis ``[L, ...]`` and linear kernels
 stored (in, out). :func:`jax_params_to_state_dict` maps it to the reference
 state-dict keys (the names the port's modules carry); :func:`load_jax_params`
 loads that into a :class:`~clip_mixer_tpu_torch.models.clip.CLIP` strictly.
+:func:`load_jax_mixer` fills a single block or tower from its JAX subtree;
+both go through the one per-block mapping, :func:`jax_block_arrays`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 
 from clip_mixer_tpu_torch.config import CLIPConfig
+from clip_mixer_tpu_torch.models.mixer import MixerBlock, MixerTower
 from clip_mixer_tpu_torch.models.towers import require_mixer
 
 
 def _f32(a) -> np.ndarray:
     return np.array(a, np.float32)
+
+
+def _tensors(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(a, np.float32, order="C")) for k, a in arrays.items()}
+
+
+def jax_block_arrays(block: Mapping) -> Dict[str, np.ndarray]:
+    """One unstacked JAX mixer block (``{"ln_token", "token_mix",
+    "ln_channel", "channel_mix"}``, numpy leaves, (in, out) kernels) ->
+    f32 arrays under a :class:`MixerBlock`'s own state-dict keys."""
+    tm, cm = block["token_mix"], block["channel_mix"]
+    return {
+        "layerNorm1.weight": _f32(block["ln_token"]["scale"]),
+        "layerNorm1.bias": _f32(block["ln_token"]["bias"]),
+        "token_mix_seq.lin1.weight": _f32(tm["w_in"]).T,
+        "token_mix_seq.lin1.bias": _f32(tm["b_in"]),
+        "token_mix_seq.lin2.weight": _f32(tm["w_out"]).T,
+        "token_mix_seq.lin2.bias": _f32(tm["b_out"]),
+        "layerNorm2.weight": _f32(block["ln_channel"]["scale"]),
+        "layerNorm2.bias": _f32(block["ln_channel"]["bias"]),
+        "channel_mix_seq.lin3.weight": _f32(cm["w_in"]).T,
+        "channel_mix_seq.lin3.bias": _f32(cm["b_in"]),
+        "channel_mix_seq.lin4.weight": _f32(cm["w_out"]).T,
+        "channel_mix_seq.lin4.bias": _f32(cm["b_out"]),
+    }
+
+
+def _layer(tree: Mapping, i: int) -> Dict:
+    """Layer ``i`` of a tree of stacked ``[L, ...]`` leaves."""
+    return {k: _layer(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in tree.items()}
+
+
+def _tower_arrays(tower: Mapping) -> Dict[str, np.ndarray]:
+    """A JAX tower ``{"blocks": stacked blocks}`` -> a :class:`MixerTower`'s keys."""
+    blocks = tower["blocks"]
+    n_layers = np.asarray(blocks["ln_token"]["scale"]).shape[0]
+    return {
+        f"mixBlocks.{i}.{k}": v for i in range(n_layers) for k, v in jax_block_arrays(_layer(blocks, i)).items()
+    }
+
+
+def load_jax_mixer(module: Union[MixerBlock, MixerTower], tree: Mapping):
+    """Fill a :class:`MixerBlock` from one unstacked JAX block tree, or a
+    :class:`MixerTower` from a JAX tower ``{"blocks": stacked blocks}``
+    (what ``clip_mixer_tpu.models.mixer.init_mixer_tower`` returns); strict,
+    in place. Returns ``module``."""
+    if isinstance(module, MixerBlock):
+        arrays = jax_block_arrays(tree)
+    elif isinstance(module, MixerTower):
+        arrays = _tower_arrays(tree)
+    else:
+        raise TypeError(f"load_jax_mixer fills a MixerBlock or a MixerTower, got {type(module).__name__}")
+    module.load_state_dict(_tensors(arrays), strict=True)
+    return module
 
 
 def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
@@ -32,21 +89,7 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
         sd[f"{prefix}.bias"] = _f32(ln["bias"])
 
     def put_tower(prefix, tower):
-        blocks = tower["blocks"]
-        n_layers = np.asarray(blocks["ln_token"]["scale"]).shape[0]
-        for i in range(n_layers):
-            p = f"{prefix}.mixBlocks.{i}"
-            tm, cm = blocks["token_mix"], blocks["channel_mix"]
-            put_ln(f"{p}.layerNorm1", {k: v[i] for k, v in blocks["ln_token"].items()})
-            sd[f"{p}.token_mix_seq.lin1.weight"] = _f32(tm["w_in"][i]).T
-            sd[f"{p}.token_mix_seq.lin1.bias"] = _f32(tm["b_in"][i])
-            sd[f"{p}.token_mix_seq.lin2.weight"] = _f32(tm["w_out"][i]).T
-            sd[f"{p}.token_mix_seq.lin2.bias"] = _f32(tm["b_out"][i])
-            put_ln(f"{p}.layerNorm2", {k: v[i] for k, v in blocks["ln_channel"].items()})
-            sd[f"{p}.channel_mix_seq.lin3.weight"] = _f32(cm["w_in"][i]).T
-            sd[f"{p}.channel_mix_seq.lin3.bias"] = _f32(cm["b_in"][i])
-            sd[f"{p}.channel_mix_seq.lin4.weight"] = _f32(cm["w_out"][i]).T
-            sd[f"{p}.channel_mix_seq.lin4.bias"] = _f32(cm["b_out"][i])
+        sd.update({f"{prefix}.{k}": v for k, v in _tower_arrays(tower).items()})
 
     v = tree["visual"]
     p = cfg.vision_patch_size
@@ -66,7 +109,7 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
     # A "logit_bias" leaf (sigmoid-loss training only) has no slot here and
     # does not change inference.
     sd["logit_scale"] = _f32(tree["logit_scale"])
-    return {k: torch.from_numpy(np.array(a, np.float32, order="C")) for k, a in sd.items()}
+    return _tensors(sd)
 
 
 def load_jax_params(model, tree: Mapping):

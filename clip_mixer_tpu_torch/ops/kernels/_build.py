@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface under ``build/kernels/`` at
 the repository root, and loaded with ``ctypes``. A library newer than its
-source is reused. Every C entry returns ``cudaGetLastError()`` after its
-launch; :func:`check` turns a non-zero code into an exception.
+source and than the shared headers ``csrc/*.cuh`` is reused. Every C entry
+returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
+non-zero code into an exception.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on hosts with no ``nvcc``.
@@ -51,9 +52,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _fresh(name: str) -> bool:
+    """The library is newer than its source and than every shared header
+    in ``csrc/`` (a source may include any of them)."""
     lib = _lib_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime
+    if not lib.exists():
+        return False
+    sources = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime >= max(p.stat().st_mtime for p in sources)
 
 
 def build(names: Iterable[str]) -> None:

@@ -8,8 +8,9 @@ tensors on the CPU.
 
 Weights are in ``nn.Linear``'s (out, in) layout: ``w_in`` [H, W], ``w_out``
 [W, H]. Every parameter arrives already cast to ``x.dtype`` (the LN scale and
-bias too, as the TPU kernel casts them). Forward only: the backward belongs
-to the training slice.
+bias too, as the TPU kernel casts them). :func:`ln_mlp` is differentiable, as
+the JAX ``custom_vjp`` is: the kernel computes the forward, and the backward
+is the VJP of :func:`ln_mlp_plain`, recomputed from the saved inputs.
 """
 
 from __future__ import annotations
@@ -80,8 +81,8 @@ def _check(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> None:
         raise ValueError(f"ln_mlp needs H % 128 == 0, got H={H}")
 
 
-def ln_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
-    """x: [R, W] -> x + MLP(LN(x)), same shape and dtype."""
+def _forward(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
     if x.device.type == "cpu":
         return ln_mlp_plain(x, ln_w, ln_b, w_in, b_in, w_out, b_out)
     if x.device.type != "cuda":
@@ -103,6 +104,32 @@ def ln_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
     _build.check(rc, "ln_mlp")
     ln_mlp.launches += 1
     return out
+
+
+def plain_vjp(plain, saved, grad):
+    """The gradients of ``plain(*saved)`` against every saved input, for
+    ``grad`` of its output: the plain op chain recomputed with autograd."""
+    inputs = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        out = plain(*inputs)
+    return torch.autograd.grad(out, inputs, grad)
+
+
+class _LnMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _forward(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(ln_mlp_plain, ctx.saved_tensors, grad)
+
+
+def ln_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """x: [R, W] -> x + MLP(LN(x)), same shape and dtype; differentiable in
+    x and all six parameters."""
+    return _LnMlp.apply(x, ln_w, ln_b, w_in, b_in, w_out, b_out)
 
 
 ln_mlp.launches = 0

@@ -3,8 +3,9 @@ timing-only variants of its own source, built side by side.
 
     python scripts/torch_ln_mlp_anatomy.py
 
-The variants cut lines out of ``ln_mlp.cu`` by exact text; a cut that no
-longer matches the source stops the script with an error naming it.
+The variants cut lines out of the channel-mix device code that ``ln_mlp.cu``
+includes (``channel_mix.cuh``) by exact text; a cut that no longer matches
+the source stops the script with an error naming it.
 
 - ``load_only``: the MMAs removed; the weight tiles still stream through
   the cp.async ring (the L2 -> shared memory cost).
@@ -47,7 +48,7 @@ def variant_source(name: str, src: str) -> str:
     cuts = {"full": (), "load_only": _MMAS, "mma_only": (_COPY,), "no_sync": (_SYNC,)}[name]
     for cut in cuts:
         if cut not in src:
-            raise RuntimeError(f"ln_mlp.cu no longer contains {cut!r}: update the {name} variant")
+            raise RuntimeError(f"channel_mix.cuh no longer contains {cut!r}: update the {name} variant")
         src = src.replace(cut, ";")
     return src
 
@@ -55,12 +56,17 @@ def variant_source(name: str, src: str) -> str:
 def build_variants(names):
     out_dir = _build.BUILD_DIR.parent / "anatomy"
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC_DIR / "ln_mlp.cu").read_text()
+    kernel = (_build.CSRC_DIR / "ln_mlp.cu").read_text()
+    header = (_build.CSRC_DIR / "channel_mix.cuh").read_text()
     procs = {}
     for n in names:
-        cu = out_dir / f"{n}.cu"
-        cu.write_text(variant_source(n, src))
-        lib = out_dir / f"lib{n}.so"
+        # each variant in a directory of its own, beside its copy of the header
+        d = out_dir / n
+        d.mkdir(exist_ok=True)
+        cu = d / "ln_mlp.cu"
+        cu.write_text(kernel)
+        (d / "channel_mix.cuh").write_text(variant_source(n, header))
+        lib = d / "libln_mlp.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)]
         procs[n] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}

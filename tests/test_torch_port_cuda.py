@@ -8,12 +8,21 @@ device. The file imports no JAX, so it also runs where JAX is absent:
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from clip_mixer_tpu_torch.models.mixer import MixerBlock, init_mixer_block
 from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
 from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
+from clip_mixer_tpu_torch.ops.kernels.mixer_block import (
+    fused_mixer_block_tbd,
+    mixer_block_fused,
+    mixer_block_plain,
+    mixer_tower_fused,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +112,103 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     bands = kpre.ResizeBands.build((256, 256), 224, cuda)
     with pytest.raises(ValueError, match="uint8"):
         kpre.preprocess(torch.zeros((1, 256, 256, 3), device=cuda), bands)
+
+
+def _block_case(B, T, D, dtype, device, seed, text_tower):
+    """A MixerBlock at its tower's init scales (LN parameters perturbed so
+    the affine counts), in ``dtype`` on ``device``, and x [T, B, D]."""
+    g = torch.Generator().manual_seed(seed)
+    block = MixerBlock(D, T)
+    init_mixer_block(block, text_tower=text_tower, n_layers=12, generator=g)
+    with torch.no_grad():
+        for ln in (block.layerNorm1, block.layerNorm2):
+            ln.weight.add_(0.1 * torch.randn(D, generator=g))
+            ln.bias.add_(0.1 * torch.randn(D, generator=g))
+    x = torch.randn(T, B, D, generator=g)
+    return block.to(device=device, dtype=dtype), x.to(device=device, dtype=dtype)
+
+
+# chip_smoke.py's cases: both towers at bucket 128, vision at bucket 8, text
+# at a B no batch tile divides, f32
+BLOCK_CASES = [
+    (128, 50, 768, torch.bfloat16, False), (128, 77, 512, torch.bfloat16, True),
+    (8, 50, 768, torch.bfloat16, False), (12, 77, 512, torch.bfloat16, True), (8, 50, 768, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("B,T,D,dtype,text_tower", BLOCK_CASES)
+def test_mixer_block_kernel_matches_plain(cuda, B, T, D, dtype, text_tower):
+    block, x = _block_case(B, T, D, dtype, cuda, seed=B + T, text_tower=text_tower)
+    before = fused_mixer_block_tbd.launches
+    with torch.no_grad():
+        got = fused_mixer_block_tbd(block, x)
+        torch.cuda.synchronize()
+        assert fused_mixer_block_tbd.launches == before + 1
+        want = mixer_block_plain(block, x)
+        if dtype == torch.float32:
+            # f32 sums in another order: the tolerance chip_smoke.py gives ln_mlp
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+            return
+        xf = x.float()
+        assert _rel_err(got.float() - xf, want.float() - xf) <= BRANCH_TOL
+        # and the check fails a kernel that drops either residual branch's last bias
+        for bias in ("token_mix_seq.lin2.bias", "channel_mix_seq.lin4.bias"):
+            faulty = copy.deepcopy(block)
+            faulty.get_parameter(bias).zero_()
+            planted = mixer_block_plain(faulty, x)
+            assert _rel_err(planted.float() - xf, want.float() - xf) > BRANCH_TOL, bias
+
+
+def test_mixer_block_kernel_reads_the_tower_layout(cuda):
+    """The tower hands the kernel its [B, T, D] activations as a [T, B, D]
+    view: the same arithmetic as on a contiguous [T, B, D] copy."""
+    block, x = _block_case(16, 50, 768, torch.bfloat16, cuda, seed=12, text_tower=False)
+    xb = x.transpose(0, 1).contiguous()  # [B, T, D]
+    with torch.no_grad():
+        got = fused_mixer_block_tbd(block, xb.transpose(0, 1))
+        assert got.stride() == xb.transpose(0, 1).stride()
+        torch.testing.assert_close(got, fused_mixer_block_tbd(block, x), atol=0, rtol=0)
+        tower = torch.nn.Module()
+        tower.mixBlocks = torch.nn.ModuleList([block, block])
+        out = mixer_tower_fused(tower, xb)
+    assert out.shape == xb.shape and out.is_contiguous()
+
+
+def test_backward_through_the_kernels_matches_plain_autograd(cuda):
+    """Gradients reach x and every parameter through both kernels (f32)."""
+    block, x = _block_case(8, 50, 768, torch.float32, cuda, seed=13, text_tower=False)
+    x.requires_grad_()
+    inputs = [x, *block.parameters()]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(14)).to(cuda)
+    before = fused_mixer_block_tbd.launches
+    got = torch.autograd.grad(mixer_block_fused(block, x), inputs, g)
+    assert fused_mixer_block_tbd.launches == before + 1
+    want = torch.autograd.grad(mixer_block_plain(block, x), inputs, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)  # test_pallas_kernels.py:121
+
+    args = [t.requires_grad_() for t in _ln_mlp_args(400, 768, torch.float32, cuda, seed=15)]
+    g = torch.randn(400, 768, generator=torch.Generator().manual_seed(16)).to(cuda)
+    before = ln_mlp.launches
+    got = torch.autograd.grad(ln_mlp(*args), args, g)
+    assert ln_mlp.launches == before + 1
+    want = torch.autograd.grad(ln_mlp_plain(*args), args, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+def test_mixer_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    block, x = _block_case(4, 50, 768, torch.bfloat16, cuda, seed=17, text_tower=False)
+    with pytest.raises(ValueError, match="float16"):
+        fused_mixer_block_tbd(block.half(), x.half())
+    with pytest.raises(ValueError, match="T <= 64"):  # 7 row tiles at D = 768
+        wide, xw = _block_case(4, 77, 768, torch.bfloat16, cuda, seed=18, text_tower=False)
+        fused_mixer_block_tbd(wide, xw)
+    with pytest.raises(ValueError, match="T <= 80"):
+        long, xl = _block_case(2, 96, 256, torch.float32, cuda, seed=19, text_tower=False)
+        fused_mixer_block_tbd(long, xl)
+    with pytest.raises(ValueError, match="D % 128"):
+        narrow, xn = _block_case(2, 50, 96, torch.bfloat16, cuda, seed=20, text_tower=False)
+        fused_mixer_block_tbd(narrow, xn)
+    with pytest.raises(ValueError, match="strides"):
+        fused_mixer_block_tbd(block.bfloat16(), x[:, ::2])
