@@ -9,7 +9,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    per source, all started together) and hold each kernel against its plain
    PyTorch version on the card at the shapes the serving paths give it
    (``ln_mlp``, ``preprocess``, and ``fused_mixer_block_tbd`` at both towers'
-   buckets 128 and 8, a B no batch tile divides, and f32); one f32 backward
+   buckets 128 and 8, a B no batch tile divides, and f32), and each of
+   ``ln_mlp``'s three bf16 stages (LN pass, GEMM 1 with QuickGELU, GEMM 2
+   with the residual) against its plain version; one f32 backward
    through ``mixer_block_fused`` and through ``ln_mlp`` against plain
    autograd; then a small f32 model with the fused channel mix, and the
    same model with its towers through ``mixer_tower_fused``, on the card
@@ -30,9 +32,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    40 captions, ``encode_image_arrays`` of 7 and 100 images and the kernel
    front end at batch 128: 12 block launches per tower call and none of
    ``ln_mlp``; features against the plain towers: cosine >= 0.999.
-3. Time each kernel and its plain version with CUDA events, and each tower
-   at bucket 128 three ways: through ``mixer_tower_fused``, with
-   ``fused_mlp=True``, and plain.
+3. Time each kernel and its plain version with CUDA events (``ln_mlp``
+   also stage by stage, and beside the bf16 chain of the model's non-fused
+   channel mix, ``torch_chain_ms``), and each tower at bucket 128 three
+   ways: through ``mixer_tower_fused``, with ``fused_mlp=True``, and plain.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -67,14 +70,21 @@ BF16_REL_TOL = 1e-2  # relative Frobenius error: bf16 keeps 8 significant bits
 # fails the check.
 LN_MLP_BRANCH_TOL = 5e-3
 LN_MLP_F32_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_pallas_kernels.py:57
+# ln_mlp's bf16 stages y = LN(x) and h = QuickGELU(y W_in^T + b_in), each
+# against its plain version on the same input: the same bf16 rounding of f32
+# values that differ only in summation order, so sound runs differ by about
+# 1e-4 (rare one-ulp flips). The third stage is held on its branch, as
+# ln_mlp is (LN_MLP_BRANCH_TOL).
+LN_MLP_STAGE_TOL = 1e-3
 PREPROCESS_F32_ATOL = 1e-4  # banded vs dense f32 sums: summation order only
 COSINE_MIN = 0.999
 
-LN_MLP_CASES = [  # (label, R, W, H, dtype): the towers at buckets 128 and 8, a ragged R, f32
+LN_MLP_CASES = [  # (label, R, W, H, dtype): the towers at buckets 128 and 8, ragged R, 128-wide tiles, f32
     ("vision", 128 * 50, 768, 3072, torch.bfloat16),
     ("text", 128 * 77, 512, 2048, torch.bfloat16),
     ("vision_b8", 8 * 50, 768, 3072, torch.bfloat16),
     ("ragged", 3 * 77, 512, 2048, torch.bfloat16),
+    ("narrow", 151, 384, 1536, torch.bfloat16),  # W % 256 != 0: GEMM 2 on 128-column tiles
     ("f32", 8 * 50, 768, 3072, torch.float32),
 ]
 PREPROCESS_CASES = [("bf16", 128, torch.bfloat16), ("f32", 128, torch.float32)]
@@ -169,6 +179,29 @@ def ln_mlp_cost(R, W, H, dtype):
     return n_bytes, 4 * R * W * H  # two products of 2*R*W*H
 
 
+def check_ln_mlp_stages(label, args, fused):
+    """Each bf16 stage of ``ln_mlp`` alone against its plain version on the
+    same input, and the three composed against the fused call (the same
+    launches, so the same bits). Returns the errors and the stages' inputs."""
+    from clip_mixer_tpu_torch.ops.kernels import ln_mlp as kln
+
+    x, ln_w, ln_b, w_in, b_in, w_out, b_out = args
+    y = kln.ln_rows(x, ln_w, ln_b)
+    h = kln.linear_gelu(y, w_in, b_in)
+    out = kln.linear_residual(h, w_out, b_out, x)
+    torch.cuda.synchronize()
+    errs = {
+        "ln_rows": rel_err(y, kln.ln_rows_plain(x, ln_w, ln_b)),
+        "linear_gelu": rel_err(h, kln.linear_gelu_plain(y, w_in, b_in)),
+        "linear_residual_branch": branch_err(out, kln.linear_residual_plain(h, w_out, b_out, x), x),
+    }
+    for name, err in errs.items():
+        tol = LN_MLP_BRANCH_TOL if name.endswith("branch") else LN_MLP_STAGE_TOL
+        require(err <= tol, f"ln_mlp {label} stage {name}: relative error {err} > {tol}")
+    require(torch.equal(out, fused), f"ln_mlp {label}: its stages composed differ from the fused call")
+    return errs, (y, h)
+
+
 def check_ln_mlp(dev):
     from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
 
@@ -189,8 +222,13 @@ def check_ln_mlp(dev):
             case["planted_fault_err"] = branch_err(no_b_out, want, args[0])
             require(case["planted_fault_err"] > LN_MLP_BRANCH_TOL, f"ln_mlp {label}: the check passes b_out = 0")
             case["tol"] = f"branch (out - x) relative Frobenius <= {LN_MLP_BRANCH_TOL} (bf16, same rounding points)"
+            case["stage_err"], stage_inputs = check_ln_mlp_stages(label, args, got)
+            case["stage_tol"] = (f"relative Frobenius <= {LN_MLP_STAGE_TOL} (y, h), branch <= {LN_MLP_BRANCH_TOL} "
+                                 "(out); stages composed == fused call")
+            case["stage_inputs"] = stage_inputs
         results[label] = dict(case, args=args)
-        log(f"ln_mlp {label} R={R} W={W} H={H} {dtype}: max_abs {err:.3g} branch rel {rel:.3g} ok")
+        log(f"ln_mlp {label} R={R} W={W} H={H} {dtype}: max_abs {err:.3g} branch rel {rel:.3g} "
+            f"stages {case.get('stage_err')} ok")
     return results
 
 
@@ -568,6 +606,17 @@ def fused_block_path(dev, counters):
 # ---- phase 3: timing ----------------------------------------------------------
 
 
+def torch_chain(x, ln_w, ln_b, w_in, b_in, w_out, b_out):
+    """The model's non-fused channel mix (``MixerBlock.forward`` with
+    ``fused_mlp=False``) on weights already in ``x.dtype``: a yardstick for
+    ``ln_mlp`` that the port never calls."""
+    from clip_mixer_tpu_torch.models.layers import layer_norm, quick_gelu
+
+    y = layer_norm(x, ln_w, ln_b)
+    h = quick_gelu(y @ w_in.t() + b_in)
+    return x + (h @ w_out.t() + b_out)
+
+
 def time_towers(model, dev):
     """Each tower at bucket 128, bf16: through ``mixer_tower_fused``, through
     ``fused_mlp=True`` (``ln_mlp``), and plain; in turns A B C C B A, each
@@ -600,8 +649,8 @@ def time_towers(model, dev):
 
 
 def time_kernels(ln_cases, pre_cases, block_cases, launches):
+    from clip_mixer_tpu_torch.ops.kernels import ln_mlp as kln
     from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
-    from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
     from clip_mixer_tpu_torch.ops.kernels.mixer_block import fused_mixer_block_tbd, mixer_block_plain
 
     rows = []
@@ -618,8 +667,16 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
                 dtype = x.dtype
             elif kernel == "ln_mlp":
                 args = case.pop("args")
-                ms = cuda_ms(lambda: ln_mlp(*args), iters=20)
-                plain_ms = cuda_ms(lambda: ln_mlp_plain(*args), iters=5)
+                ms = cuda_ms(lambda: kln.ln_mlp(*args), iters=20)
+                plain_ms = cuda_ms(lambda: kln.ln_mlp_plain(*args), iters=5)
+                if "stage_inputs" in case:  # bf16: three launches, each timed alone
+                    (y, h), (x, ln_w, ln_b, w_in, b_in, w_out, b_out) = case.pop("stage_inputs"), args
+                    case["stage_ms"] = {
+                        "ln_rows": cuda_ms(lambda: kln.ln_rows(x, ln_w, ln_b), iters=20),
+                        "linear_gelu": cuda_ms(lambda: kln.linear_gelu(y, w_in, b_in), iters=20),
+                        "linear_residual": cuda_ms(lambda: kln.linear_residual(h, w_out, b_out, x), iters=20),
+                    }
+                    case["torch_chain_ms"] = cuda_ms(lambda: torch_chain(*args), iters=20)
                 n_bytes, n_ops = ln_mlp_cost(case["R"], case["W"], case["H"], args[0].dtype)
                 dtype = args[0].dtype
             else:
@@ -633,7 +690,9 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
             bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
             timed[label] = dict(case, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                 bytes=n_bytes, operations=n_ops)
-            log(f"{kernel} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by})")
+            log(f"{kernel} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}"
+                + (f", torch chain {case['torch_chain_ms']:.4f}, stages {case['stage_ms']}" if "stage_ms" in case else "")
+                + ")")
         main = timed.pop(main_label)
         source = {
             "ln_mlp": "clip_mixer_tpu_torch/csrc/ln_mlp.cu",
@@ -686,7 +745,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line for k in ("registers", "spill", "wgmma", "setmaxnreg")) or "error" in line.lower():
                 log(f"ptxas {name}: {line.strip()}")
     log(f"built {_build.all_sources()} in {build_s:.1f} s")
 

@@ -1,4 +1,4 @@
-// Fused LayerNorm + channel MLP of a mixer block, for sm_90a.
+// LayerNorm + channel MLP of a mixer block, for sm_90a.
 //
 //   out = x + QuickGELU(LN(x) . W_in^T + b_in) . W_out^T + b_out
 //
@@ -8,56 +8,81 @@
 //
 // What bounds it on an H100: at the serving shapes (R = B*T = 6400, W = 768,
 // H = 3072) the two products are 4*R*W*H = 60 GFLOP against ~30 MB of
-// unique bytes, so it is bound by tensor-core operations (~61 us at the
-// 989 TFLOP/s bf16 peak). The unfused chain would also write and re-read the
-// [R, H] hidden activation (R*H*2*2 = 79 MB): this kernel never stores it.
+// unique bytes, so tensor-core operations bound it (~61 us at the 989
+// TFLOP/s bf16 peak).
 //
-// Design (bf16): one CTA of 8 warps owns BM rows and the whole output width:
-// BM = 64 when 32-row blocks would not fit in one wave on the card and
-// W <= 768 (64 rows of f32 accumulators fit in registers), else BM = 32.
-// The device code is channel_mix.cuh's, shared with mixer_block.cu.
-// LN runs once in f32 (rows read 16 bytes a lane) and lands in shared
-// memory as bf16. The hidden dim is
-// walked in chunks of HC1 = 64 *inside* the CTA (the TPU grid's sequential
-// "arbitrary" axis has no counterpart: CTAs run in no order). Per chunk:
-// h = y . W_in[chunk]^T on wmma bf16 m16n16k16 tensor-core tiles with f32
-// accumulation, + b_in, QuickGELU, rounded once to bf16 in shared memory;
-// then acc += h . W_out[:, chunk]^T into f32
-// accumulators held in registers (each warp owns W / 8 output columns of all
-// BM rows: 192 registers a thread at W = 768). Epilogue: x + acc + b_out in
-// f32, cast once. Rows past R are masked at the store, so R is arbitrary.
-// Rounding points follow the TPU kernel: y and h in bf16, f32 accumulation,
-// f32 epilogue, LN affine from bf16-cast parameters (the caller casts).
-// The weights stream from L2 through a ring of shared tiles filled by
-// cp.async, S - 1 tiles ahead of the MMAs. Each CTA reads every weight once,
-// so L2 traffic is all weights per BM rows (64 operations per byte at
-// BM = 64): at 32 rows the weight stream alone took as long as the MMAs.
-// Now the MMAs (wmma from shared memory, 8 warps an SM) are the larger
-// cost; wgmma, TMA multicast across a cluster, and splitting the hidden dim
-// across CTAs at small R are the next steps for speed.
+// Design (bf16): three launches on the caller's stream.
+// (a) ln_rows_kernel: LN in f32, one warp a row (channel_mix.cuh's
+//     ln_rows_bf16, 16 bytes a lane a load), y [R, W] rounded to bf16 into
+//     a scratch the caller allocates.
+// (b) GEMM 1, gemm_sm90.cuh: h = bf16(QuickGELU(y . W_in^T + b_in)) into a
+//     second scratch h [R, H], the epilogue in f32 on the accumulators.
+// (c) GEMM 2: out = bf16(x + h . W_out^T + b_out), added in f32.
+// The TPU kernel kept h on chip, walking the hidden dim as a sequential grid
+// axis into an f32 accumulator of the whole width. On this card that design
+// (channel_mix.cuh's wmma channel mix, which the block kernel keeps) held
+// [64, W] f32 accumulators a block in registers (192 a thread at W = 768):
+// its row tile could not grow, no warpgroup MMA fit beside them, and every block
+// re-streamed all of W_in and W_out from L2 (0.94 GB a call at R = 6400). Its
+// MMAs alone ran at ~110 TFLOP/s. Unfused, each product is an ordinary GEMM
+// with 128-row tiles on wgmma and TMA. The price is h's round trip through
+// device memory: R*H*2 bytes written and read back, 39 MB at R = 6400
+// (~24 us at 3.35 TB/s if none of it stayed in the 50 MB L2). The rounding
+// points are the TPU kernel's: y and h in bf16, f32 sums, f32 epilogues, the
+// LN affine from bf16-cast parameters (the caller casts).
 //
 // Design (f32): 32 rows a block and 128-wide hidden chunks on CUDA cores
-// (there is no full-precision f32 tensor-core path), for the f32
-// configurations; no serving path runs it at speed.
+// (there is no full-precision f32 tensor-core path), channel_mix.cuh's
+// channel_mix_f32, for the f32 configurations; no serving path runs it at
+// speed.
 
 #include "channel_mix.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-// 32 or 64 rows a block (bf16), 32 (f32); the channel mix itself is
-// channel_mix.cuh's, shared with mixer_block.cu.
-template <int NF, int BM_>
-__global__ void __launch_bounds__(THREADS, 1)
-ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
-                   const bf16* __restrict__ w_in, const bf16* __restrict__ b_in,
-                   const bf16* __restrict__ w_out, const bf16* __restrict__ b_out,
-                   bf16* __restrict__ out, int R, int H) {
-  constexpr int W = Bf16Shape<NF, BM_ / 16>::W;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int row0 = blockIdx.x * BM_;
-  channel_mix_bf16<NF, BM_ / 16>(x + (size_t)row0 * W, W, out + (size_t)row0 * W, W, min(BM_, R - row0),
-                                 ln_w, ln_b, w_in, b_in, w_out, b_out, H, smem);
+// One warp a row, WARPS rows a block.
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
+               bf16* __restrict__ y, int R) {
+  const int row0 = blockIdx.x * WARPS;
+  const int rows = min(WARPS, R - row0);
+  ln_rows_bf16<W>(x + (size_t)row0 * W, W, rows, rows, ln_w, ln_b, y + (size_t)row0 * W, W);
 }
+
+template <int W>
+cudaError_t launch_ln_rows(const void* x, const void* ln_w, const void* ln_b, void* y, int R, cudaStream_t stream) {
+  ln_rows_kernel<W><<<(R + WARPS - 1) / WARPS, THREADS, 0, stream>>>((const bf16*)x, (const bf16*)ln_w,
+                                                                      (const bf16*)ln_b, (bf16*)y, R);
+  return cudaGetLastError();
+}
+
+// GEMM 1's epilogue: h[r, c..c+1] = bf16(QuickGELU(acc + b_in)).
+struct GeluEpilogue {
+  const bf16* bias;
+  bf16* h;
+  int ldh;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c));
+    *reinterpret_cast<__nv_bfloat162*>(h + (size_t)r * ldh + c) =
+        __floats2bfloat162_rn(quick_gelu(v0 + b.x), quick_gelu(v1 + b.y));
+  }
+};
+
+// GEMM 2's epilogue: out[r, c..c+1] = bf16(x + acc + b_out), in f32.
+struct ResidualEpilogue {
+  const bf16* bias;
+  const bf16* x;
+  bf16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t i = (size_t)r * ld + c;
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c));
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + i));
+    *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(xv.x + v0 + b.x, xv.y + v1 + b.y);
+  }
+};
 
 template <int MC>
 __global__ void __launch_bounds__(THREADS)
@@ -69,45 +94,6 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ ln_w, c
   const int row0 = blockIdx.x * F32_BM;
   channel_mix_f32<MC>(x + (size_t)row0 * W, W, out + (size_t)row0 * W, W, min(F32_BM, R - row0),
                       ln_w, ln_b, w_in, b_in, w_out, b_out, W, H, smem);
-}
-
-template <int NF, int BM_>
-cudaError_t launch_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w_in, const void* b_in,
-                        const void* w_out, const void* b_out, void* out, int R, int H, cudaStream_t stream) {
-  using S_ = Bf16Shape<NF, BM_ / 16>;
-  // Opt into the shared memory once per instance (the port drives one device).
-  static const cudaError_t opted = cudaFuncSetAttribute(
-      ln_mlp_bf16_kernel<NF, BM_>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_::SMEM);
-  if (opted != cudaSuccess) return opted;
-  const dim3 grid((R + BM_ - 1) / BM_);
-  ln_mlp_bf16_kernel<NF, BM_><<<grid, THREADS, S_::SMEM, stream>>>(
-      (const bf16*)x, (const bf16*)ln_w, (const bf16*)ln_b, (const bf16*)w_in, (const bf16*)b_in,
-      (const bf16*)w_out, (const bf16*)b_out, (bf16*)out, R, H);
-  return cudaGetLastError();
-}
-
-// The card's SM count, looked up on the first launch (the port drives one
-// device); the lookup's error is kept and returned by every launch.
-struct SmCount {
-  int sms = 0;
-  cudaError_t error;
-  SmCount() {
-    int device = 0;
-    error = cudaGetDevice(&device);
-    if (error == cudaSuccess) error = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-};
-
-// 64-row blocks where 32-row blocks would not fit in one wave on the card.
-template <int NF>
-cudaError_t launch_bf16_rows(const void* x, const void* ln_w, const void* ln_b, const void* w_in,
-                             const void* b_in, const void* w_out, const void* b_out, void* out, int R, int H,
-                             cudaStream_t stream) {
-  static const SmCount card;
-  if (card.error != cudaSuccess) return card.error;
-  if (NF <= 6 && (R + 31) / 32 > card.sms)
-    return launch_bf16<NF, NF <= 6 ? 64 : 32>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, stream);
-  return launch_bf16<NF, 32>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, stream);
 }
 
 template <int MC>
@@ -125,24 +111,46 @@ cudaError_t launch_f32(const void* x, const void* ln_w, const void* ln_b, const 
 
 }  // namespace
 
-// C interface. Shapes: x/out [R, W]; w_in [H, W]; w_out [W, H]; vectors
-// ln_w, ln_b, b_out [W], b_in [H]. The caller checks W % 128 == 0 (bf16),
-// W <= 1024, H % 128 == 0, R > 0 and 32-byte-aligned pointers (16-byte
-// cp.async copies need the weights' rows 16-byte aligned: W % 8 == 0).
-extern "C" int ln_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w_in, const void* b_in,
-                           const void* w_out, const void* b_out, void* out, int R, int W, int H, void* stream) {
+// C interface, bf16 stages. Shapes: x, y, out [R, W]; h [R, H]; w_in [H, W];
+// w_out [W, H]; ln_w, ln_b, b_out [W]; b_in [H]. The caller checks
+// W % 128 == 0, W <= 1024, H % 128 == 0, R > 0 and 32-byte-aligned pointers.
+// Each entry returns cudaGetLastError() after its last launch.
+extern "C" int ln_mlp_ln_rows(const void* x, const void* ln_w, const void* ln_b, void* y, int R, int W,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W / (16 * WARPS)) {
-    case 1: return launch_bf16_rows<1>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
-    case 2: return launch_bf16_rows<2>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
-    case 3: return launch_bf16_rows<3>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
-    case 4: return launch_bf16_rows<4>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
-    case 5: return launch_bf16_rows<5>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
-    case 6: return launch_bf16_rows<6>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
-    case 7: return launch_bf16_rows<7>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
-    case 8: return launch_bf16_rows<8>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, R, H, s);
+  switch (W / 128) {
+    case 1: return launch_ln_rows<128>(x, ln_w, ln_b, y, R, s);
+    case 2: return launch_ln_rows<256>(x, ln_w, ln_b, y, R, s);
+    case 3: return launch_ln_rows<384>(x, ln_w, ln_b, y, R, s);
+    case 4: return launch_ln_rows<512>(x, ln_w, ln_b, y, R, s);
+    case 5: return launch_ln_rows<640>(x, ln_w, ln_b, y, R, s);
+    case 6: return launch_ln_rows<768>(x, ln_w, ln_b, y, R, s);
+    case 7: return launch_ln_rows<896>(x, ln_w, ln_b, y, R, s);
+    case 8: return launch_ln_rows<1024>(x, ln_w, ln_b, y, R, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int ln_mlp_linear_gelu(const void* y, const void* w_in, const void* b_in, void* h, int R, int H, int W,
+                                  void* stream) {
+  const GeluEpilogue epi{(const bf16*)b_in, (bf16*)h, H};
+  return sm90::gemm((const bf16*)y, (const bf16*)w_in, R, H, W, epi, (cudaStream_t)stream);
+}
+
+extern "C" int ln_mlp_linear_residual(const void* h, const void* w_out, const void* b_out, const void* x, void* out,
+                                      int R, int W, int H, void* stream) {
+  const ResidualEpilogue epi{(const bf16*)b_out, (const bf16*)x, (bf16*)out, W};
+  return sm90::gemm((const bf16*)h, (const bf16*)w_out, R, W, H, epi, (cudaStream_t)stream);
+}
+
+// The three stages in turn; y and h are the caller's scratch.
+extern "C" int ln_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w_in, const void* b_in,
+                           const void* w_out, const void* b_out, void* out, void* y, void* h, int R, int W, int H,
+                           void* stream) {
+  int e = ln_mlp_ln_rows(x, ln_w, ln_b, y, R, W, stream);
+  if (e == 0) e = ln_mlp_linear_gelu(y, w_in, b_in, h, R, H, W, stream);
+  if (e == 0) e = ln_mlp_linear_residual(h, w_out, b_out, x, out, R, W, H, stream);
+  return e;
 }
 
 extern "C" int ln_mlp_f32(const void* x, const void* ln_w, const void* ln_b, const void* w_in, const void* b_in,

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, init_mixer_block
+from clip_mixer_tpu_torch.ops.kernels import ln_mlp as kln
 from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
 from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
 from clip_mixer_tpu_torch.ops.kernels.mixer_block import (
@@ -60,10 +61,15 @@ BRANCH_TOL = 5e-3
 
 @pytest.mark.parametrize(
     "R,W,dtype",
-    [  # 64-row blocks (R = 6400, 9856), 32-row blocks (400, 231), f32
+    [  # the towers at buckets 128 and 8, a ragged R, f32
         (6400, 768, torch.bfloat16), (9856, 512, torch.bfloat16), (400, 768, torch.bfloat16),
         (231, 512, torch.bfloat16), (400, 768, torch.float32), (77, 64, torch.float32),
-    ],
+    ]
+    # bf16 at ragged R (a last 128-row tile that TMA fills with zeros and the
+    # epilogue masks) and at W = 128, 384 and 1024: 128-column tiles, and
+    # 256-column ones for GEMM 1 at R = 6465
+    + [(R, W, torch.bfloat16) for R in (1, 65, 129, 231) for W in (128, 384, 1024)]
+    + [(6465, 768, torch.bfloat16)],
 )
 def test_ln_mlp_kernel_matches_plain(cuda, R, W, dtype):
     args = _ln_mlp_args(R, W, dtype, cuda, seed=8)
@@ -82,6 +88,41 @@ def test_ln_mlp_kernel_matches_plain(cuda, R, W, dtype):
         # and the check fails a kernel that drops b_out
         no_b_out = ln_mlp_plain(*args[:6], torch.zeros_like(args[6]))
         assert _rel_err(no_b_out.float() - x, want.float() - x) > BRANCH_TOL
+
+
+# y and h: the same bf16 rounding of f32 values that differ only in
+# summation order; sound runs differ by about 1e-4 (chip_smoke.py's tolerance)
+STAGE_TOL = 1e-3
+
+
+@pytest.mark.parametrize("R,W", [(6400, 768), (9856, 512), (231, 384), (65, 1024)])
+def test_ln_mlp_stages_match_plain(cuda, R, W):
+    x, lw, lb, wi, bi, wo, bo = _ln_mlp_args(R, W, torch.bfloat16, cuda, seed=R + W)
+    before = [f.launches for f in (kln.ln_rows, kln.linear_gelu, kln.linear_residual)]
+    y = kln.ln_rows(x, lw, lb)
+    h = kln.linear_gelu(y, wi, bi)
+    out = kln.linear_residual(h, wo, bo, x)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (kln.ln_rows, kln.linear_gelu, kln.linear_residual)] == [n + 1 for n in before]
+    assert _rel_err(y, kln.ln_rows_plain(x, lw, lb)) <= STAGE_TOL
+    assert _rel_err(h, kln.linear_gelu_plain(y, wi, bi)) <= STAGE_TOL
+    want = kln.linear_residual_plain(h, wo, bo, x)
+    xf = x.float()
+    assert _rel_err(out.float() - xf, want.float() - xf) <= BRANCH_TOL
+    # ln_mlp is these three launches: the same bits
+    assert torch.equal(out, ln_mlp(x, lw, lb, wi, bi, wo, bo))
+
+
+def test_stage_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, lw, lb, wi, bi, wo, bo = _ln_mlp_args(64, 128, torch.float32, cuda, seed=21)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kln.ln_rows(x, lw, lb)
+    x, lw, lb, wi, bi, wo, bo = _ln_mlp_args(64, 128, torch.bfloat16, cuda, seed=22)
+    with pytest.raises(ValueError, match="shape"):
+        kln.linear_gelu(x, wo, bi)
+    h = kln.linear_gelu(x, wi, bi)
+    with pytest.raises(ValueError, match="contiguous"):
+        kln.linear_residual(h, wo, bo, x.t().contiguous().t())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
