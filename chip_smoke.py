@@ -11,7 +11,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (``ln_mlp``, ``preprocess``, and ``fused_mixer_block_tbd`` at both towers'
    buckets 128 and 8, a B no batch tile divides, and f32), and each of
    ``ln_mlp``'s three bf16 stages (LN pass, GEMM 1 with QuickGELU, GEMM 2
-   with the residual) against its plain version; one f32 backward
+   with the residual) against its plain version, and the bf16 block's
+   first launch alone (``token_mix``: z and y2 = LN_ch(z)) against
+   ``token_mix_plain`` in both layouts, its three launches composed against
+   the fused call; one f32 backward
    through ``mixer_block_fused`` and through ``ln_mlp`` against plain
    autograd; then a small f32 model with the fused channel mix, and the
    same model with its towers through ``mixer_tower_fused``, on the card
@@ -33,8 +36,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    front end at batch 128: 12 block launches per tower call and none of
    ``ln_mlp``; features against the plain towers: cosine >= 0.999.
 3. Time each kernel and its plain version with CUDA events (``ln_mlp``
-   also stage by stage, and beside the bf16 chain of the model's non-fused
-   channel mix, ``torch_chain_ms``), and each tower at bucket 128 three
+   and the bf16 block also stage by stage, each beside the model's own bf16
+   chain for the same function, ``torch_chain_ms``: the non-fused channel
+   mix, and ``MixerBlock.forward``), and each tower at bucket 128 three
    ways: through ``mixer_tower_fused``, with ``fused_mlp=True``, and plain.
 
 Standard output ends with a JSON line per phase result, the kernels line,
@@ -284,6 +288,13 @@ def block_case(label, B, T, D, dtype, dev, seed):
     return block.to(device=dev, dtype=dtype), x.to(device=dev, dtype=dtype)
 
 
+def token_mix_cost(B, T, D, U, dtype):
+    """Bytes (x read, z and y2 written, the token weights and vectors) and
+    operations of the block's first launch alone."""
+    e = torch.finfo(dtype).bits // 8
+    return e * (3 * B * T * D + 2 * T * U + 4 * D + U + T), 2 * B * D * 2 * T * U
+
+
 def block_cost(B, T, D, U, H, dtype):
     """Bytes and operations the JAX CostEstimate counts (block_kernel.py:181-185)."""
     e = torch.finfo(dtype).bits // 8
@@ -319,6 +330,52 @@ def check_mixer_block(dev):
         results[label] = dict(case, block=block, x=x)
         log(f"fused_mixer_block {label} B={B} T={T} D={D} {dtype}: max_abs {err:.3g} branch rel {rel:.3g} ok")
     return results
+
+
+def rows(t: torch.Tensor) -> torch.Tensor:
+    """A [T, B, D] tensor in either of the block's layouts as its [B*T, D]
+    rows in memory order, the rows the block's GEMMs take."""
+    return t.as_strided((t.shape[0] * t.shape[1], t.shape[2]), (t.shape[2], 1))
+
+
+def check_token_mix(block_cases):
+    """The bf16 block's first launch alone (``token_mix``) against
+    ``token_mix_plain`` at every bf16 block shape, in both layouts: z on its
+    branch z - x (the plain version without b2 must fail that check), y2
+    against LN_ch of the kernel's own z; and the block's three launches
+    (``token_mix``, then ``ln_mlp``'s two GEMM stages) composed against the
+    fused call, bit for bit. Keeps the tower layout's stage outputs for the
+    timing."""
+    from clip_mixer_tpu_torch.ops.kernels import ln_mlp as kln
+    from clip_mixer_tpu_torch.ops.kernels import mixer_block as kmb
+
+    for label, case in block_cases.items():
+        block, x = case["block"], case["x"]
+        if x.dtype != torch.bfloat16:
+            continue
+        p = kmb.block_params(block, x.dtype)
+        errs = {}
+        for layout, xl in (("TBD", x), ("BTD view", x.transpose(0, 1).contiguous().transpose(0, 1))):
+            z, y2 = kmb.token_mix(xl, *p[:8])
+            torch.cuda.synchronize()
+            want, _ = kmb.token_mix_plain(xl, *p[:8])
+            no_b2, _ = kmb.token_mix_plain(xl, *p[:5], torch.zeros_like(p[5]), *p[6:8])
+            e = dict(z_branch=branch_err(z, want, xl), planted_b2=branch_err(no_b2, want, xl),
+                     y2=rel_err(y2, kln.ln_rows_plain(z, p[6], p[7])))
+            what = f"token_mix {label} {layout}"
+            require(e["z_branch"] <= LN_MLP_BRANCH_TOL, f"{what}: z branch error {e['z_branch']} > {LN_MLP_BRANCH_TOL}")
+            require(e["planted_b2"] > LN_MLP_BRANCH_TOL, f"{what}: the check passes b2 = 0")
+            require(e["y2"] <= LN_MLP_STAGE_TOL, f"{what}: y2 error {e['y2']} > {LN_MLP_STAGE_TOL}")
+            h = kln.linear_gelu(rows(y2), p[8], p[9])
+            out = kln.linear_residual(h, p[10], p[11], rows(z))
+            require(torch.equal(out, rows(kmb.fused_mixer_block_tbd(block, xl))),
+                    f"{what}: the block's three launches composed differ from the fused call")
+            errs[layout] = e
+        case["token_stage_err"] = errs
+        case["token_stage_tol"] = (f"z branch (z - x) relative Frobenius <= {LN_MLP_BRANCH_TOL}, y2 against LN_ch of "
+                                   f"the kernel's z <= {LN_MLP_STAGE_TOL}; the three launches composed == fused call")
+        case["stage_inputs"] = (xl, z, y2, h)  # the tower's layout, the last one checked
+        log(f"token_mix {label}: {errs} ok")
 
 
 def check_gradients(dev):
@@ -651,9 +708,10 @@ def time_towers(model, dev):
 def time_kernels(ln_cases, pre_cases, block_cases, launches):
     from clip_mixer_tpu_torch.ops.kernels import ln_mlp as kln
     from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
+    from clip_mixer_tpu_torch.ops.kernels import mixer_block as kmb
     from clip_mixer_tpu_torch.ops.kernels.mixer_block import fused_mixer_block_tbd, mixer_block_plain
 
-    rows = []
+    table = []
     for kernel, cases, main_label in (
         ("ln_mlp", ln_cases, "vision"), ("preprocess", pre_cases, "bf16"), ("fused_mixer_block", block_cases, "vision"),
     ):
@@ -663,6 +721,19 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
                 block, x = case.pop("block"), case.pop("x")
                 ms = cuda_ms(lambda: fused_mixer_block_tbd(block, x), iters=20)
                 plain_ms = cuda_ms(lambda: mixer_block_plain(block, x), iters=5)
+                if "stage_inputs" in case:  # bf16: three launches, each timed alone
+                    (xl, z, y2, h), p = case.pop("stage_inputs"), kmb.block_params(block, x.dtype)
+                    case["stage_ms"] = {
+                        "token_mix": cuda_ms(lambda: kmb.token_mix(xl, *p[:8]), iters=20),
+                        "linear_gelu": cuda_ms(lambda: kln.linear_gelu(rows(y2), p[8], p[9]), iters=20),
+                        "linear_residual": cuda_ms(lambda: kln.linear_residual(h, p[10], p[11], rows(z)), iters=20),
+                    }
+                    t_bytes, t_ops = token_mix_cost(case["B"], case["T"], case["D"], case["U"], x.dtype)
+                    case["token_mix_bound_ms"], case["token_mix_bound_by"] = bound(t_bytes, t_ops, x.dtype)
+                    # the model's own bf16 block (fused_mlp=False) on the same [B, T, D] input
+                    x_btd = x.transpose(0, 1).contiguous()
+                    with torch.inference_mode():
+                        case["torch_chain_ms"] = cuda_ms(lambda: block(x_btd), iters=20)
                 n_bytes, n_ops = block_cost(case["B"], case["T"], case["D"], case["U"], case["H"], x.dtype)
                 dtype = x.dtype
             elif kernel == "ln_mlp":
@@ -704,7 +775,7 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
             "preprocess": "clip_mixer_tpu/ops/pallas/preprocess_kernel.py:72",
             "fused_mixer_block": "clip_mixer_tpu/ops/pallas/block_kernel.py:127",
         }
-        rows.append({
+        table.append({
             "name": kernel,
             "route": "cuda",
             "source": source[kernel],
@@ -718,7 +789,7 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
             "library_ms": None,
             "other_cases": timed,
         })
-    return rows
+    return table
 
 
 def nvidia_smi() -> str:
@@ -752,6 +823,7 @@ def main() -> int:
     ln_cases = check_ln_mlp(dev)
     pre_cases = check_preprocess(dev)
     block_cases = check_mixer_block(dev)
+    check_token_mix(block_cases)
     check_gradients(dev)
     check_small_model(dev)
     torch.cuda.synchronize()
@@ -773,8 +845,7 @@ def main() -> int:
     # each kernel's launches on the path that carries it
     path_launches = {"ln_mlp": launches["ln_mlp"], "preprocess": launches["preprocess"],
                      "fused_mixer_block": block_launches["fused_mixer_block"]}
-    rows = time_kernels(ln_cases, pre_cases, block_cases, path_launches)
-    emit({"kernels": rows})
+    emit({"kernels": time_kernels(ln_cases, pre_cases, block_cases, path_launches)})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,28 +1,31 @@
-// The channel mix of a mixer block, as device code for one thread block of
-// 8 warps that owns a few rows and the whole width W:
+// Device code of a mixer block's channel mix, shared by ln_mlp.cu and
+// mixer_block.cu:
 //
 //   out = x + QuickGELU(LN(x) . W_in^T + b_in) . W_out^T + b_out
 //
-// Shared by ln_mlp.cu (a block owns up to 64 rows of x [R, W]) and
-// mixer_block.cu (a block owns the T tokens of one sample, after its token
-// mix). Row r of x is at x + r * ldx and of out at out + r * ldo; x and out
-// may be the same rows (mixer_block.cu updates z in place): every element is
-// read and then written by one thread, and the LN has read all rows before
-// any is written. Weights are in nn.Linear's (out, in) layout: w_in [H, W],
-// w_out [W, H]. Rounding points follow the TPU kernel: LN in f32 with the
-// affine from parameters already in the activation type, y and the hidden
-// activation rounded to it, f32 accumulation, f32 epilogue.
+// - bf16: the LN rows (ln_rows_bf16, one warp a row, 16 bytes a lane a load)
+//   and the two epilogue functors that gemm_sm90.cuh's GEMM runs on its
+//   accumulators (GeluEpilogue after LN(x) . W_in^T, ResidualEpilogue after
+//   h . W_out^T). The products themselves are gemm_sm90.cuh's.
+// - f32: channel_mix_f32, one block of 8 warps on up to 32 rows and the
+//   whole width W, on CUDA cores, for the f32 configurations. Row r of x is
+//   at x + r * ldx and of out at out + r * ldo; x and out may be the same
+//   rows (mixer_block.cu updates z in place): every element is read and then
+//   written by one thread, and the LN has read all rows before any is
+//   written.
+// Weights are in nn.Linear's (out, in) layout: w_in [H, W], w_out [W, H].
+// Rounding points follow the TPU kernel: LN in f32 with the affine from
+// parameters already in the activation type, y and the hidden activation
+// rounded to it, f32 accumulation, f32 epilogue.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int WARPS = 8;
@@ -149,190 +152,34 @@ __device__ void ln_rows_bf16(const bf16* x, size_t ldx, int rows, int rows_pad, 
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// ---- bf16: wmma tensor cores fed from a cp.async ring ----------------------
-// The weights stream through shared memory as a sequence of tiles, per hidden
-// chunk of HC1: W / KT1 tiles of W_in[chunk, k-slice] (GEMM1), then HC1 / 16
-// tiles of W_out[:, 16 hidden] (GEMM2). Every thread copies its share of
-// tile t + S - 1 while the warps multiply tile t. Shared rows are padded
-// (LD1, LDY, LDH, LDS) so the fragment loads hit distinct banks.
-constexpr int HC1 = 64;        // hidden chunk
-constexpr int KT1 = 128;       // GEMM1 k-slice
-constexpr int LD1 = KT1 + 8;   // GEMM1 tile row: W_in[n, k-slice]
-constexpr int LD2 = 16;        // GEMM2 tile row: W_out[n, 16 hidden]
-constexpr int LDH = HC1 + 8;   // h_s row
-constexpr int LDS = HC1 + 4;   // f32 stage row
-
-// NF = output column fragments (16 wide) per warp: W = NF * 16 * WARPS.
-// RT = the row tiles (16 rows) a block owns; the [16 RT, W] f32
-// accumulators live in registers, RT * NF fragments of 8 floats a thread
-// (192 registers at RT * NF = 24).
-template <int NF, int RT>
-struct Bf16Shape {
-  static constexpr int W = NF * 16 * WARPS;
-  static constexpr int BM = 16 * RT;
-  static constexpr int K1 = W / KT1;           // GEMM1 tiles per chunk
-  static constexpr int TPC = K1 + HC1 / 16;    // tiles per chunk
-  static constexpr int LDY = W + 8;            // y_s row
-  static constexpr int SLOT = (HC1 * LD1 > W * LD2) ? HC1 * LD1 : W * LD2;  // elements
-  static constexpr int FIXED = BM * LDY * 2 + BM * LDH * 2 + BM * LDS * 4;
-  static constexpr int S_FIT = (SMEM_MAX - FIXED) / (SLOT * 2);
-  static constexpr int S = S_FIT > 4 ? 4 : S_FIT;  // ring depth
-  static constexpr int SMEM = S * SLOT * 2 + FIXED;
-  static_assert(S >= 2, "the cp.async ring needs two slots");
-  static_assert(BM * LDS >= WARPS * 256, "the epilogue's per-warp scratch lives in the stage");
+// The GEMM epilogues of the bf16 channel mix (gemm_sm90.cuh's functors),
+// shared by ln_mlp.cu and mixer_block.cu.
+// GEMM 1: h[r, c..c+1] = bf16(QuickGELU(acc + b_in)).
+struct GeluEpilogue {
+  const bf16* bias;
+  bf16* h;
+  int ldh;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c));
+    *reinterpret_cast<__nv_bfloat162*>(h + (size_t)r * ldh + c) =
+        __floats2bfloat162_rn(quick_gelu(v0 + b.x), quick_gelu(v1 + b.y));
+  }
 };
 
-template <int NF, int RT>
-__device__ __forceinline__ void fetch_tile(bf16* slot, int t, const bf16* __restrict__ w_in,
-                                           const bf16* __restrict__ w_out, int H) {
-  using S_ = Bf16Shape<NF, RT>;
-  const int chunk = t / S_::TPC, r = t % S_::TPC;
-  if (r < S_::K1) {  // W_in[chunk * HC1 + n, r * KT1 + 8q], 16 bytes each
-    const bf16* src = w_in + (size_t)chunk * HC1 * S_::W + r * KT1;
-    for (int i = threadIdx.x; i < HC1 * (KT1 / 8); i += THREADS) {
-      const int n = i / (KT1 / 8), q = i % (KT1 / 8);
-      cp_async16(slot + n * LD1 + q * 8, src + (size_t)n * S_::W + q * 8);
-    }
-  } else {  // W_out[n, chunk * HC1 + 16 k2 + 8q]
-    const bf16* src = w_out + chunk * HC1 + (r - S_::K1) * 16;
-    for (int i = threadIdx.x; i < S_::W * 2; i += THREADS) {
-      const int n = i >> 1, q = i & 1;
-      cp_async16(slot + n * LD2 + q * 8, src + (size_t)n * H + q * 8);
-    }
+// GEMM 2: out[r, c..c+1] = bf16(x + acc + b_out), in f32. x and out may be
+// the same rows: each element is read and then written by one thread.
+struct ResidualEpilogue {
+  const bf16* bias;
+  const bf16* x;
+  bf16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t i = (size_t)r * ld + c;
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c));
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + i));
+    *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(xv.x + v0 + b.x, xv.y + v1 + b.y);
   }
-}
-
-// The channel mix of `rows` rows (rows <= 16 * RT) with the shared memory
-// `smem` (Bf16Shape<NF, RT>::SMEM bytes); x and out rows 16-byte aligned.
-// GEMM1 splits the RT row tiles between two halves of the warps, each warp
-// taking one of the chunk's four 16-column tiles; GEMM2 gives each warp NF
-// output column tiles of every row tile. Rows past `rows` are zeros in y
-// and are not stored.
-template <int NF, int RT>
-__device__ __forceinline__ void channel_mix_bf16(const bf16* x, size_t ldx, bf16* out, size_t ldo, int rows,
-                                                 const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
-                                                 const bf16* __restrict__ w_in, const bf16* __restrict__ b_in,
-                                                 const bf16* __restrict__ w_out, const bf16* __restrict__ b_out,
-                                                 int H, unsigned char* smem) {
-  using S_ = Bf16Shape<NF, RT>;
-  constexpr int S = S_::S, LDY = S_::LDY, BM = S_::BM;
-  constexpr int RT1 = (RT + 1) / 2;  // the most GEMM1 row tiles a warp takes
-  bf16* ring = reinterpret_cast<bf16*>(smem);                                   // [S][SLOT]
-  bf16* y_s = ring + S * S_::SLOT;                                              // [BM, LDY]
-  bf16* h_s = y_s + BM * LDY;                                                   // [BM, LDH]
-  float* stage = reinterpret_cast<float*>(h_s + BM * LDH);                      // [BM, LDS]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int NT = (H / HC1) * S_::TPC;
-  const int cw = warp % 4, rw = (warp / 4) * RT1;  // this warp's GEMM1 column tile and first row tile
-  const int nrw = min(RT1, RT - rw);                // and its number of row tiles (RT odd: one fewer)
-
-  // The first tiles fly while LN runs.
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < NT) fetch_tile<NF, RT>(ring + s * S_::SLOT, s, w_in, w_out, H);
-    cp_async_commit();
-  }
-  ln_rows_bf16<S_::W>(x, ldx, rows, BM, ln_w, ln_b, y_s, LDY);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT][NF];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  int t = 0;
-  for (int c0 = 0; c0 < H; c0 += HC1) {
-    // h[rows of rw.., 16 cw : 16 cw + 16] = y . W_in[c0 + 16 cw ...]^T
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[RT1];
-#pragma unroll
-    for (int i = 0; i < RT1; ++i) wmma::fill_fragment(hacc[i], 0.0f);
-    for (int kt = 0; kt < S_::K1; ++kt, ++t) {
-      cp_async_wait<S - 2>();
-      __syncthreads();  // tile t landed for every thread; slot (t - 1) % S is free
-      if (t + S - 1 < NT) fetch_tile<NF, RT>(ring + ((t + S - 1) % S) * S_::SLOT, t + S - 1, w_in, w_out, H);
-      cp_async_commit();
-      // B(k, n) = W_in[c0 + n, kt * KT1 + k]: column-major in the tile
-      const bf16* bt = ring + (t % S) * S_::SLOT + 16 * cw * LD1;
-#pragma unroll
-      for (int kk = 0; kk < KT1; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, bt + kk, LD1);
-#pragma unroll
-        for (int i = 0; i < RT1; ++i) {
-          if (RT % 2 == 0 || i < nrw) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, y_s + 16 * (rw + i) * LDY + kt * KT1 + kk, LDY);
-            wmma::mma_sync(hacc[i], a, b, hacc[i]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RT1; ++i)
-      if (RT % 2 == 0 || i < nrw)
-        wmma::store_matrix_sync(stage + 16 * (rw + i) * LDS + 16 * cw, hacc[i], LDS, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * HC1; i += THREADS) {
-      const int r = i / HC1, c = i % HC1;
-      const float h = stage[r * LDS + c] + __bfloat162float(b_in[c0 + c]);
-      h_s[r * LDH + c] = __float2bfloat16(quick_gelu(h));
-    }
-    // acc[:, warp's columns] += h . W_out[cols, c0 : c0 + HC1]^T, 16 hidden at a time
-    for (int k2 = 0; k2 < HC1 / 16; ++k2, ++t) {
-      cp_async_wait<S - 2>();
-      __syncthreads();  // also publishes h_s
-      if (t + S - 1 < NT) fetch_tile<NF, RT>(ring + ((t + S - 1) % S) * S_::SLOT, t + S - 1, w_in, w_out, H);
-      cp_async_commit();
-      const bf16* bt = ring + (t % S) * S_::SLOT;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) wmma::load_matrix_sync(a[i], h_s + 16 * i * LDH + 16 * k2, LDH);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        // B(k, n) = W_out[n, c0 + 16 k2 + k]: column-major in the tile
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, bt + (warp * NF * 16 + 16 * j) * LD2, LD2);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Epilogue through a 16x16 f32 scratch per warp: out = x + acc + b_out,
-  // 8 columns a lane.
-  float* scratch = stage + warp * 256;
-  const int r = lane / 2, cc = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = 16 * i + r;
-      const int gc = warp * NF * 16 + 16 * j + cc;
-      if (gr < rows) {
-        float xv[8], bv[8], o[8];
-        load8(x + (size_t)gr * ldx + gc, xv);
-        load8(b_out + gc, bv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) o[e] = xv[e] + scratch[r * 16 + cc + e] + bv[e];
-        store8(out + (size_t)gr * ldo + gc, o);
-      }
-      __syncwarp();
-    }
-  }
-}
+};
 
 // ---- f32: CUDA cores -----------------------------------------------------
 // 32 rows a block (one a lane) and 128-wide hidden chunks: there is no

@@ -2,19 +2,21 @@
 // epilogue functor, built the Hopper way: TMA loads into a ring of
 // shared-memory stages, warpgroup MMAs (wgmma) on them, warp specialisation.
 //
-// It serves the two products of clip_mixer_tpu/ops/pallas/mlp_kernel.py::
-// fused_ln_mlp through ln_mlp.cu: y . W_in^T with a QuickGELU epilogue, then
-// h . W_out^T with a residual epilogue. Both operands are K-major, the layout
+// It serves the two products of a channel mix, y . W_in^T with a QuickGELU
+// epilogue, then h . W_out^T with a residual epilogue: for
+// clip_mixer_tpu/ops/pallas/mlp_kernel.py::fused_ln_mlp through ln_mlp.cu,
+// and for the channel half of block_kernel.py::fused_mixer_block_tbd through
+// mixer_block.cu. Both operands are K-major, the layout
 // of row-major activations (A) and of nn.Linear's (out, in) weights (B), so
 // nothing is transposed.
 //
 // What bounds it on an H100: at the serving shapes (M = 6400, N and K = 768
 // and 3072) each product is 30 GFLOP against 15-65 MB of operands and
 // results, so tensor-core operations bound it (31 us at 989 TFLOP/s bf16).
-// The wmma channel mix it replaces (channel_mix.cuh) kept a block's whole
-// [64, W] f32 output in registers, so its row tile could not grow, no
-// warpgroup MMA fit beside the accumulators, and every block re-streamed all
-// the weights from L2. Here a block owns one 128 x BN tile of C only.
+// A fused whole-width channel mix keeps a block's whole [64, W] f32 output
+// in registers, so its row tile cannot grow, no warpgroup MMA fits beside
+// the accumulators, and every block re-streams all the weights from L2.
+// Here a block owns one 128 x BN tile of C only.
 //
 // Design: one block per 128 x BN output tile (BN = 256 when N % 256 == 0
 // and those tiles make two waves on the card, else 128); K walked in BK = 64

@@ -18,12 +18,14 @@
 // (b) GEMM 1, gemm_sm90.cuh: h = bf16(QuickGELU(y . W_in^T + b_in)) into a
 //     second scratch h [R, H], the epilogue in f32 on the accumulators.
 // (c) GEMM 2: out = bf16(x + h . W_out^T + b_out), added in f32.
+// The epilogues are channel_mix.cuh's GeluEpilogue and ResidualEpilogue,
+// which mixer_block.cu's channel half runs too.
 // The TPU kernel kept h on chip, walking the hidden dim as a sequential grid
 // axis into an f32 accumulator of the whole width. On this card that design
-// (channel_mix.cuh's wmma channel mix, which the block kernel keeps) held
-// [64, W] f32 accumulators a block in registers (192 a thread at W = 768):
-// its row tile could not grow, no warpgroup MMA fit beside them, and every block
-// re-streamed all of W_in and W_out from L2 (0.94 GB a call at R = 6400). Its
+// (a whole-width wmma channel mix) held [64, W] f32 accumulators a block
+// in registers (192 a thread at W = 768): its row tile could not grow, no
+// warpgroup MMA fit beside them, and every block re-streamed all of W_in
+// and W_out from L2 (0.94 GB a call at R = 6400). Its
 // MMAs alone ran at ~110 TFLOP/s. Unfused, each product is an ordinary GEMM
 // with 128-row tiles on wgmma and TMA. The price is h's round trip through
 // device memory: R*H*2 bytes written and read back, 39 MB at R = 6400
@@ -57,32 +59,6 @@ cudaError_t launch_ln_rows(const void* x, const void* ln_w, const void* ln_b, vo
                                                                       (const bf16*)ln_b, (bf16*)y, R);
   return cudaGetLastError();
 }
-
-// GEMM 1's epilogue: h[r, c..c+1] = bf16(QuickGELU(acc + b_in)).
-struct GeluEpilogue {
-  const bf16* bias;
-  bf16* h;
-  int ldh;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c));
-    *reinterpret_cast<__nv_bfloat162*>(h + (size_t)r * ldh + c) =
-        __floats2bfloat162_rn(quick_gelu(v0 + b.x), quick_gelu(v1 + b.y));
-  }
-};
-
-// GEMM 2's epilogue: out[r, c..c+1] = bf16(x + acc + b_out), in f32.
-struct ResidualEpilogue {
-  const bf16* bias;
-  const bf16* x;
-  bf16* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
-    const size_t i = (size_t)r * ld + c;
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c));
-    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + i));
-    *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(xv.x + v0 + b.x, xv.y + v1 + b.y);
-  }
-};
 
 template <int MC>
 __global__ void __launch_bounds__(THREADS)

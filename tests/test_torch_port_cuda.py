@@ -17,6 +17,7 @@ import torch
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, init_mixer_block
 from clip_mixer_tpu_torch.ops.kernels import ln_mlp as kln
 from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
+from clip_mixer_tpu_torch.ops.kernels import mixer_block as kmb
 from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
 from clip_mixer_tpu_torch.ops.kernels.mixer_block import (
     fused_mixer_block_tbd,
@@ -200,6 +201,31 @@ def test_mixer_block_kernel_matches_plain(cuda, B, T, D, dtype, text_tower):
             assert _rel_err(planted.float() - xf, want.float() - xf) > BRANCH_TOL, bias
 
 
+@pytest.mark.parametrize("layout", ["TBD", "BTD view"])
+@pytest.mark.parametrize("B", [1, 8, 12, 128])
+@pytest.mark.parametrize("T,D,text_tower", [(50, 768, False), (77, 512, True)])
+def test_token_mix_kernel_matches_plain(cuda, T, D, text_tower, B, layout):
+    """The bf16 block's first launch alone: z on its branch z - x, y2 = LN_ch
+    of the kernel's own z at the stage tolerance."""
+    block, x = _block_case(B, T, D, torch.bfloat16, cuda, seed=B * T, text_tower=text_tower)
+    if layout == "BTD view":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    p = kmb.block_params(block, torch.bfloat16)
+    before = kmb.token_mix.launches
+    with torch.no_grad():
+        z, y2 = kmb.token_mix(x, *p[:8])
+        torch.cuda.synchronize()
+        assert kmb.token_mix.launches == before + 1
+        assert z.stride() == y2.stride() == x.stride()
+        want, _ = kmb.token_mix_plain(x, *p[:8])
+        xf = x.float()
+        assert _rel_err(z.float() - xf, want.float() - xf) <= BRANCH_TOL
+        assert _rel_err(y2, kln.ln_rows_plain(z, p[6], p[7])) <= STAGE_TOL
+        # and the branch check fails a kernel that drops b2
+        no_b2, _ = kmb.token_mix_plain(x, *p[:5], torch.zeros_like(p[5]), *p[6:8])
+        assert _rel_err(no_b2.float() - xf, want.float() - xf) > BRANCH_TOL
+
+
 def test_mixer_block_kernel_reads_the_tower_layout(cuda):
     """The tower hands the kernel its [B, T, D] activations as a [T, B, D]
     view: the same arithmetic as on a contiguous [T, B, D] copy."""
@@ -242,9 +268,11 @@ def test_mixer_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     block, x = _block_case(4, 50, 768, torch.bfloat16, cuda, seed=17, text_tower=False)
     with pytest.raises(ValueError, match="float16"):
         fused_mixer_block_tbd(block.half(), x.half())
-    with pytest.raises(ValueError, match="T <= 64"):  # 7 row tiles at D = 768
+    with pytest.raises(ValueError, match="shared memory"):  # the text tower's tokens at the vision width
         wide, xw = _block_case(4, 77, 768, torch.bfloat16, cuda, seed=18, text_tower=False)
         fused_mixer_block_tbd(wide, xw)
+    with pytest.raises(ValueError, match="bfloat16"):  # token_mix is the bf16 block's first launch
+        kmb.token_mix(x.float(), *(t.float() for t in kmb.block_params(block, torch.bfloat16)[:8]))
     with pytest.raises(ValueError, match="T <= 80"):
         long, xl = _block_case(2, 96, 256, torch.float32, cuda, seed=19, text_tower=False)
         fused_mixer_block_tbd(long, xl)
