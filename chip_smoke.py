@@ -8,15 +8,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 1. Build every ``clip_mixer_tpu_torch/csrc/*.cu`` with ``nvcc`` (one process
    per source, all started together) and hold each kernel against its plain
    PyTorch version on the card at the shapes the serving paths give it
-   (``ln_mlp``, ``preprocess``, and ``fused_mixer_block_tbd`` at both towers'
-   buckets 128 and 8, a B no batch tile divides, and f32), and each of
+   (``ln_mlp``, ``preprocess`` at B = 128, 8 and 1 and at other input
+   shapes, odd widths too, in bf16 and f32, and ``fused_mixer_block_tbd`` at both
+   towers' buckets 128 and 8, a B no batch tile divides, and f32), and each of
    ``ln_mlp``'s three bf16 stages (LN pass, GEMM 1 with QuickGELU, GEMM 2
    with the residual) against its plain version, and the bf16 block's
    first launch alone (``token_mix``: z and y2 = LN_ch(z)) against
    ``token_mix_plain`` in both layouts, its three launches composed against
-   the fused call; one f32 backward
-   through ``mixer_block_fused`` and through ``ln_mlp`` against plain
-   autograd; then a small f32 model with the fused channel mix, and the
+   the fused call; one backward in f32 and one in bf16 (x in bf16, the
+   parameters f32 masters) through ``mixer_block_fused`` and through
+   ``ln_mlp`` against autograd of the model's unfused chain; then a small f32 model with the fused channel mix, and the
    same model with its towers through ``mixer_tower_fused``, on the card
    against the CPU.
 2. The main path, with every launch counter set to 0 first: a full-width
@@ -35,7 +36,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    40 captions, ``encode_image_arrays`` of 7 and 100 images and the kernel
    front end at batch 128: 12 block launches per tower call and none of
    ``ln_mlp``; features against the plain towers: cosine >= 0.999.
-3. Time each kernel and its plain version with CUDA events (``ln_mlp``
+3. Time each kernel and its plain version with CUDA events (``preprocess``
+   warm, on the same inputs, and cold, on inputs rotated over more than
+   twice the 50 MB L2, at B = 128 and 8; ``ln_mlp``
    and the bf16 block also stage by stage, each beside the model's own bf16
    chain for the same function, ``torch_chain_ms``: the non-fused channel
    mix, and ``MixerBlock.forward``), and each tower at bucket 128 three
@@ -81,6 +84,7 @@ LN_MLP_F32_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_pallas_kernels.py:57
 # ln_mlp is (LN_MLP_BRANCH_TOL).
 LN_MLP_STAGE_TOL = 1e-3
 PREPROCESS_F32_ATOL = 1e-4  # banded vs dense f32 sums: summation order only
+L2_BYTES = 50 * 2**20  # an H100's L2 cache
 COSINE_MIN = 0.999
 
 LN_MLP_CASES = [  # (label, R, W, H, dtype): the towers at buckets 128 and 8, ragged R, 128-wide tiles, f32
@@ -91,7 +95,22 @@ LN_MLP_CASES = [  # (label, R, W, H, dtype): the towers at buckets 128 and 8, ra
     ("narrow", 151, 384, 1536, torch.bfloat16),  # W % 256 != 0: GEMM 2 on 128-column tiles
     ("f32", 8 * 50, 768, 3072, torch.float32),
 ]
-PREPROCESS_CASES = [("bf16", 128, torch.bfloat16), ("f32", 128, torch.float32)]
+PREPROCESS_CASES = [  # (label, input_hw, n_px, B, dtype): the bench front end, small B, other input shapes
+    ("bf16", (256, 256), 224, 128, torch.bfloat16),
+    ("f32", (256, 256), 224, 128, torch.float32),
+    ("b8_bf16", (256, 256), 224, 8, torch.bfloat16),
+    ("b8_f32", (256, 256), 224, 8, torch.float32),
+    ("b1_bf16", (256, 256), 224, 1, torch.bfloat16),
+    ("b1_f32", (256, 256), 224, 1, torch.float32),
+    ("480x640_bf16", (480, 640), 224, 8, torch.bfloat16),
+    ("480x640_f32", (480, 640), 224, 8, torch.float32),
+    ("480x640_b1_f32", (480, 640), 224, 1, torch.float32),
+    ("300x200_bf16", (300, 200), 224, 8, torch.bfloat16),
+    ("300x200_f32", (300, 200), 224, 8, torch.float32),
+    ("300x200_b1_bf16", (300, 200), 224, 1, torch.bfloat16),
+    ("90x131_f32", (90, 131), 64, 3, torch.float32),  # W % 4 != 0: the kernel's byte loads
+]
+PREPROCESS_TIMED = ("bf16", "b8_bf16", "f32")  # timed warm and cold in phase 3
 BLOCK_CASES = [  # (label, B, T, D, dtype): both towers at buckets 128 and 8, a B no batch tile divides, f32
     ("vision", 128, 50, 768, torch.bfloat16),
     ("text", 128, 77, 512, torch.bfloat16),
@@ -150,6 +169,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_cycling(fn, inputs, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, each on
+    the next of ``inputs`` in turn."""
+    turn = iter(range(10**9))
+    return cuda_ms(lambda: fn(inputs[next(turn) % len(inputs)]), iters)
 
 
 def bound(n_bytes: float, n_ops: float, dtype: torch.dtype):
@@ -249,26 +275,49 @@ def preprocess_cost(bands, B, dtype):
     return n_bytes, n_ops
 
 
+def dropped_tap(bands):
+    """``bands`` with the middle tap of every R_w row zeroed in its dense
+    matrix: the plain version of a kernel that drops a tap column."""
+    import dataclasses
+
+    rw = bands.rw.clone()
+    rows = torch.arange(rw.shape[0], device=rw.device)
+    rw[rows, bands.rw_start.long() + bands.rw_taps.shape[1] // 2] = 0.0
+    return dataclasses.replace(bands, rw=rw)
+
+
 def check_preprocess(dev):
     from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
 
-    bands = kpre.ResizeBands.build((256, 256), 224, dev)
     g = torch.Generator().manual_seed(1)
     results = {}
-    for label, B, dtype in PREPROCESS_CASES:
-        imgs = torch.randint(0, 256, (B, 256, 256, 3), dtype=torch.uint8, generator=g).to(dev)
+    for label, hw, n, B, dtype in PREPROCESS_CASES:
+        bands = kpre.ResizeBands.build(hw, n, dev)
+        imgs = torch.randint(0, 256, (B, *hw, 3), dtype=torch.uint8, generator=g).to(dev)
         got = kpre.preprocess(imgs, bands, dtype)
         torch.cuda.synchronize()
         want = kpre.preprocess_plain(imgs, bands, dtype)
         err, rel = max_abs(got, want), rel_err(got, want)
+        case = dict(input_hw=hw, n_px=n, B=B, dtype=str(dtype), max_abs_err=err, rel_err=rel)
+        plan, _ = kpre._plan(bands, B)
+        case["plan"] = dict(rows=plan.rows, group=plan.group, n_bands=plan.n_bands, warp_pixels=plan.warp_pixels,
+                            smem_bytes=plan.smem_bytes, ctas_per_sm=plan.ctas_per_sm, grid=plan.grid)
         if dtype == torch.float32:
-            require(err <= PREPROCESS_F32_ATOL, f"preprocess f32: max abs error {err} > {PREPROCESS_F32_ATOL}")
-            tol = f"max abs <= {PREPROCESS_F32_ATOL} (f32, banded vs dense summation)"
+            require(err <= PREPROCESS_F32_ATOL, f"preprocess {label}: max abs error {err} > {PREPROCESS_F32_ATOL}")
+            case["tol"] = f"max abs <= {PREPROCESS_F32_ATOL} (f32, banded vs dense summation)"
+            fault = max_abs(got, kpre.preprocess_plain(imgs, dropped_tap(bands), dtype))
+            require(fault > PREPROCESS_F32_ATOL, f"preprocess {label}: the check passes a dropped R_w tap")
+            case["planted_fault_err"] = fault
         else:
-            require(rel <= BF16_REL_TOL, f"preprocess bf16: relative error {rel} > {BF16_REL_TOL}")
-            tol = f"relative Frobenius <= {BF16_REL_TOL} (bf16 store)"
-        results[label] = dict(B=B, dtype=str(dtype), max_abs_err=err, rel_err=rel, tol=tol, imgs=imgs, bands=bands)
-        log(f"preprocess {label} B={B} 256->224 {dtype}: max_abs {err:.3g} rel {rel:.3g} ok")
+            require(rel <= BF16_REL_TOL, f"preprocess {label}: relative error {rel} > {BF16_REL_TOL}")
+            case["tol"] = f"relative Frobenius <= {BF16_REL_TOL} (bf16 store)"
+        if label in PREPROCESS_TIMED:
+            case.update(imgs=imgs, bands=bands)
+        results[label] = case
+        log(f"preprocess {label} B={B} {hw}->{n} {dtype}: max_abs {err:.3g} rel {rel:.3g} "
+            f"plan {case['plan']} ok")
+    empty = kpre.preprocess(torch.zeros((0, 256, 256, 3), dtype=torch.uint8, device=dev), results["bf16"]["bands"])
+    require(empty.shape == (0, 224, 224, 3), f"preprocess B=0: shape {tuple(empty.shape)}")
     return results
 
 
@@ -379,32 +428,36 @@ def check_token_mix(block_cases):
 
 
 def check_gradients(dev):
-    """One f32 backward through each kernel's autograd wrapper, against plain autograd."""
-    from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
-    from clip_mixer_tpu_torch.ops.kernels.mixer_block import (
-        fused_mixer_block_tbd,
-        mixer_block_fused,
-        mixer_block_plain,
-    )
+    """One backward through each kernel's autograd wrapper, in f32 and in
+    bf16 (x in bf16, the parameters f32 masters), against autograd of the
+    model's unfused chain: the block's own forward (``fused_mlp=False``) and
+    ``channel_mlp``."""
+    from clip_mixer_tpu_torch.models.layers import channel_mlp
+    from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import fused_mixer_block_tbd, mixer_block_fused
 
-    block, x = block_case("vision", 8, 50, 768, torch.float32, dev, seed=5)
-    x.requires_grad_()
-    args = [t.requires_grad_() for t in ln_mlp_args(400, 768, 3072, torch.float32, dev, seed=6)]
     g = torch.Generator().manual_seed(7)
-    for name, wrapper, fused, plain, inputs in (
-        ("mixer_block_fused", fused_mixer_block_tbd, lambda: mixer_block_fused(block, x),
-         lambda: mixer_block_plain(block, x), [x, *block.parameters()]),
-        ("ln_mlp", ln_mlp, lambda: ln_mlp(*args), lambda: ln_mlp_plain(*args), args),
-    ):
-        before = wrapper.launches
-        out = fused()
-        require(wrapper.launches == before + 1, f"{name}: the forward did not launch the kernel")
-        grad = torch.randn(out.shape, generator=g).to(dev)
-        got = torch.autograd.grad(out, inputs, grad)
-        want = torch.autograd.grad(plain(), inputs, grad)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, **GRAD_TOL)
-        log(f"{name} f32 backward: {len(inputs)} gradients match plain autograd")
+    for dtype, tol in ((torch.float32, GRAD_TOL), (torch.bfloat16, dict(atol=1e-2, rtol=1e-2))):
+        block, x = block_case("vision", 8, 50, 768, torch.float32, dev, seed=5)
+        x = x.to(dtype).requires_grad_()
+        x_ln, *p_ln = ln_mlp_args(400, 768, 3072, torch.float32, dev, seed=6)
+        x_ln = x_ln.to(dtype).requires_grad_()
+        p_ln = [t.requires_grad_() for t in p_ln]
+        for name, wrapper, fused, plain, inputs in (
+            ("mixer_block_fused", fused_mixer_block_tbd, lambda: mixer_block_fused(block, x),
+             lambda: block(x.transpose(0, 1)).transpose(0, 1), [x, *block.parameters()]),
+            ("ln_mlp", ln_mlp, lambda: ln_mlp(x_ln, *p_ln), lambda: channel_mlp(x_ln, *p_ln), [x_ln, *p_ln]),
+        ):
+            before = wrapper.launches
+            out = fused()
+            require(wrapper.launches == before + 1, f"{name}: the forward did not launch the kernel")
+            grad = torch.randn(out.shape, generator=g).to(device=dev, dtype=dtype)
+            got = torch.autograd.grad(out, inputs, grad)
+            want = torch.autograd.grad(plain(), inputs, grad)
+            for a, b in zip(got, want):
+                require(a.dtype == b.dtype, f"{name} {dtype}: gradient dtype {a.dtype}, expected {b.dtype}")
+                torch.testing.assert_close(a, b, **tol)
+            log(f"{name} {dtype} backward: {len(inputs)} gradients match autograd of the unfused chain")
 
 
 def route_towers(model, fused: bool):
@@ -751,9 +804,17 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
                 n_bytes, n_ops = ln_mlp_cost(case["R"], case["W"], case["H"], args[0].dtype)
                 dtype = args[0].dtype
             else:
+                if "imgs" not in case:  # checked, not timed
+                    timed[label] = case
+                    continue
                 imgs, bands = case.pop("imgs"), case.pop("bands")
                 dtype = torch.bfloat16 if case["dtype"] == str(torch.bfloat16) else torch.float32
                 ms = cuda_ms(lambda: kpre.preprocess(imgs, bands, dtype), iters=20)
+                # cold: fresh batches, more than twice the L2 in all, in turn
+                rot = [torch.randint_like(imgs, 0, 256) for _ in range(max(4, -(-2 * L2_BYTES // imgs.numel())))]
+                case["ms_cold"] = cuda_ms_cycling(lambda v: kpre.preprocess(v, bands, dtype), rot, iters=2 * len(rot))
+                case["cold_batches"] = len(rot)
+                del rot
                 plain_ms = cuda_ms(lambda: kpre.preprocess_plain(imgs, bands, dtype), iters=5)
                 n_bytes, n_ops = preprocess_cost(bands, case["B"], dtype)
                 # the preprocess arithmetic is f32 whatever it stores
@@ -761,7 +822,8 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
             bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
             timed[label] = dict(case, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                 bytes=n_bytes, operations=n_ops)
-            log(f"{kernel} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}"
+            log(f"{kernel} {label}: {ms:.4f} ms{' (cold ' + format(case['ms_cold'], '.4f') + ')' if 'ms_cold' in case else ''}"
+                f" (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}"
                 + (f", torch chain {case['torch_chain_ms']:.4f}, stages {case['stage_ms']}" if "stage_ms" in case else "")
                 + ")")
         main = timed.pop(main_label)

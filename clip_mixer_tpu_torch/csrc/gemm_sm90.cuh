@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_state.cuh"
+
 namespace sm90 {
 
 typedef __nv_bfloat16 bf16;
@@ -275,28 +277,14 @@ inline bool kmajor_map(CUtensorMap* map, const void* base, int rows, int K, int 
 template <int BN, class Epi>
 cudaError_t launch(const bf16* A, const bf16* B, int M, int N, int K, const Epi& epi, cudaStream_t stream) {
   using T = Tile<BN>;
-  // Opt into the shared memory once per instance (the port drives one device).
-  static const cudaError_t opted =
-      cudaFuncSetAttribute(gemm_kernel<BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  static port::SmemOptIn opt_in;  // per instance, per device
+  const cudaError_t opted = opt_in.ensure((const void*)gemm_kernel<BN, Epi>, T::SMEM);
   if (opted != cudaSuccess) return opted;
   CUtensorMap map_a, map_b;
   if (!kmajor_map(&map_a, A, M, K, BM) || !kmajor_map(&map_b, B, N, K, BN)) return cudaErrorInvalidValue;
   const dim3 grid(N / BN, (M + BM - 1) / BM);
   gemm_kernel<BN, Epi><<<grid, THREADS, T::SMEM, stream>>>(map_a, map_b, M, K, epi);
   return cudaGetLastError();
-}
-
-// The card's SM count, looked up once (the port drives one device); 0 if
-// the lookup failed.
-inline int sm_count() {
-  static const int sms = [] {
-    int device = 0, n = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-      return 0;
-    return n;
-  }();
-  return sms;
 }
 
 // C = A . B^T through `epi`, on `stream`; A [M, K] and B [N, K] row-major bf16.
@@ -306,7 +294,7 @@ inline int sm_count() {
 template <class Epi>
 cudaError_t gemm(const bf16* A, const bf16* B, int M, int N, int K, const Epi& epi, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || N % 128 || K <= 0 || K % BK) return cudaErrorInvalidValue;
-  const int sms = sm_count();
+  const int sms = port::sm_count();
   if (sms == 0) return cudaErrorInvalidDevice;
   const bool wide = N % 256 == 0 && (long long)((M + BM - 1) / BM) * (N / 256) >= 2LL * sms;
   return wide ? launch<256>(A, B, M, N, K, epi, stream) : launch<128>(A, B, M, N, K, epi, stream);

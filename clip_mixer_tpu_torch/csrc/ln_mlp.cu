@@ -76,7 +76,8 @@ template <int MC>
 cudaError_t launch_f32(const void* x, const void* ln_w, const void* ln_b, const void* w_in, const void* b_in,
                        const void* w_out, const void* b_out, void* out, int R, int W, int H, cudaStream_t stream) {
   const int smem = f32_smem(W);
-  cudaError_t e = cudaFuncSetAttribute(ln_mlp_f32_kernel<MC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static port::SmemOptIn opt_in;
+  const cudaError_t e = opt_in.ensure((const void*)ln_mlp_f32_kernel<MC>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((R + F32_BM - 1) / F32_BM);
   ln_mlp_f32_kernel<MC><<<grid, THREADS, smem, stream>>>(

@@ -500,8 +500,8 @@ template <int TP>
 cudaError_t launch_token_mix(const void* x, void* z, void* y2, long long ts, long long ss, int B, int T, int U, int D,
                              const void* const* p, cudaStream_t stream) {
   auto kernel = token_mix_kernel<TP>;
-  // Opt into the shared memory once per instance (the port drives one device).
-  static const cudaError_t opted = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  static port::SmemOptIn opt_in;  // per instance, per device
+  const cudaError_t opted = opt_in.ensure((const void*)kernel, SMEM_MAX);
   if (opted != cudaSuccess) return opted;
   const size_t smem = TokenSmem(T, U, D).total;
   if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
@@ -584,7 +584,8 @@ cudaError_t launch_f32(const void* x, void* out, long long ts, long long ss, int
   auto kernel = mixer_block_f32_kernel<MC>;
   const int token = f32_token_smem(T, U), channel = f32_smem(D);
   const int smem = token > channel ? token : channel;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static port::SmemOptIn opt_in;
+  const cudaError_t e = opt_in.ensure((const void*)kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<B, THREADS, smem, stream>>>(
       (const float*)x, (float*)out, ts, ss, T, U, D, H, (const float*)p[0], (const float*)p[1], (const float*)p[2],

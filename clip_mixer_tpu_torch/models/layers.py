@@ -1,4 +1,5 @@
-"""Shared primitives: f32-internal LayerNorm, QuickGELU, linear init helpers.
+"""Shared primitives: f32-internal LayerNorm, QuickGELU, the unfused channel
+mix, token mix and block chains, linear init helpers.
 
 Counterpart of ``clip_mixer_tpu/models/layers.py``. Linear weights here are
 ``nn.Linear``'s (out, in); the JAX package stores (in, out) kernels, and
@@ -27,6 +28,50 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: f
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = y * weight.float() + bias.float()
     return y.to(x.dtype)
+
+
+def channel_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """x + QuickGELU(LN(x) W_in^T + b_in) W_out^T + b_out on x [..., W], the
+    model's unfused channel mix: LN with its affine in f32 (:func:`layer_norm`),
+    then the two linears with the weights cast to ``x.dtype``. Weights are in
+    ``nn.Linear``'s (out, in) layout."""
+    dt = x.dtype
+    y = layer_norm(x, ln_w, ln_b)
+    h = y @ w_in.to(dt).t() + b_in.to(dt)
+    h = quick_gelu(h)
+    h = h @ w_out.to(dt).t() + b_out.to(dt)
+    return x + h
+
+
+def token_mix_branch(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
+    """The token-mixing residual branch on x [B, T, W]: LN -> contract T ->
+    gelu -> contract back, with the weights cast to ``x.dtype``."""
+    dt = x.dtype
+    y = layer_norm(x, ln_w, ln_b)
+    # w1 is [4T, T] (out, in): u indexes the hidden tokens.
+    h = torch.einsum("btw,ut->buw", y, w1.to(dt))
+    h = h + b1.to(dt)[:, None]
+    h = quick_gelu(h)
+    h = torch.einsum("buw,tu->btw", h, w2.to(dt))
+    return h + b2.to(dt)[:, None]
+
+
+def block_parameters(block: nn.Module):
+    """A ``MixerBlock``'s twelve parameters as the module holds them (the f32
+    masters), in the order of :func:`mixer_block_chain` and of the block
+    kernel: LN_tok, lin1, lin2, LN_ch, lin3, lin4 (weight, then bias)."""
+    tm, cm = block.token_mix_seq, block.channel_mix_seq
+    return (
+        block.layerNorm1.weight, block.layerNorm1.bias, tm.lin1.weight, tm.lin1.bias, tm.lin2.weight, tm.lin2.bias,
+        block.layerNorm2.weight, block.layerNorm2.bias, cm.lin3.weight, cm.lin3.bias, cm.lin4.weight, cm.lin4.bias,
+    )
+
+
+def mixer_block_chain(x, lt_w, lt_b, w1, b1, w2, b2, lc_w, lc_b, w3, b3, w4, b4) -> torch.Tensor:
+    """The unfused block on x [B, T, W] with its parameters given:
+    ``MixerBlock.forward`` with ``fused_mlp=False``."""
+    x = x + token_mix_branch(x, lt_w, lt_b, w1, b1, w2, b2)
+    return channel_mlp(x, lc_w, lc_b, w3, b3, w4, b4)
 
 
 class LayerNorm(nn.LayerNorm):

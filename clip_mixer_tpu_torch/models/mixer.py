@@ -19,9 +19,11 @@ from torch import nn
 
 from clip_mixer_tpu_torch.models.layers import (
     LayerNorm,
+    block_parameters,
     init_linear_normal,
     init_linear_torch_default,
-    quick_gelu,
+    mixer_block_chain,
+    token_mix_branch,
 )
 from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp
 
@@ -41,16 +43,8 @@ class ChannelMix(nn.Module):
 
 
 def token_mix(block: "MixerBlock", x: torch.Tensor) -> torch.Tensor:
-    """The token-mixing residual branch: LN -> contract T -> gelu -> contract back."""
-    dt = x.dtype
-    tm = block.token_mix_seq
-    y = block.layerNorm1(x)
-    # lin1.weight is [4T, T] (out, in): u indexes the hidden tokens.
-    h = torch.einsum("btw,ut->buw", y, tm.lin1.weight.to(dt))
-    h = h + tm.lin1.bias.to(dt)[:, None]
-    h = quick_gelu(h)
-    h = torch.einsum("buw,tu->btw", h, tm.lin2.weight.to(dt))
-    return h + tm.lin2.bias.to(dt)[:, None]
+    """The token-mixing residual branch of ``block``."""
+    return token_mix_branch(x, *block_parameters(block)[:6])
 
 
 class MixerBlock(nn.Module):
@@ -66,23 +60,13 @@ class MixerBlock(nn.Module):
         self.channel_mix_seq = ChannelMix(width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        x = x + token_mix(self, x)
-        cm = self.channel_mix_seq
-        if self.fused_mlp:
-            B, T, W = x.shape
-            out = ln_mlp(
-                x.reshape(B * T, W),
-                self.layerNorm2.weight.to(dt), self.layerNorm2.bias.to(dt),
-                cm.lin3.weight.to(dt), cm.lin3.bias.to(dt),
-                cm.lin4.weight.to(dt), cm.lin4.bias.to(dt),
-            )
-            return out.reshape(B, T, W)
-        y = self.layerNorm2(x)
-        h = y @ cm.lin3.weight.to(dt).t() + cm.lin3.bias.to(dt)
-        h = quick_gelu(h)
-        h = h @ cm.lin4.weight.to(dt).t() + cm.lin4.bias.to(dt)
-        return x + h
+        params = block_parameters(self)
+        if not self.fused_mlp:
+            return mixer_block_chain(x, *params)
+        x = x + token_mix_branch(x, *params[:6])
+        B, T, W = x.shape
+        # ln_mlp takes the f32 masters and casts them to x.dtype itself
+        return ln_mlp(x.reshape(B * T, W), *params[6:]).reshape(B, T, W)
 
 
 @torch.no_grad()

@@ -14,10 +14,16 @@ with its plain version (``*_plain``), for the checks on the card; the three
 plain versions composed are :func:`ln_mlp_plain`, bit for bit.
 
 Weights are in ``nn.Linear``'s (out, in) layout: ``w_in`` [H, W], ``w_out``
-[W, H]. Every parameter arrives already cast to ``x.dtype`` (the LN scale and
-bias too, as the TPU kernel casts them). :func:`ln_mlp` is differentiable, as
-the JAX ``custom_vjp`` is: the kernel computes the forward, and the backward
-is the VJP of :func:`ln_mlp_plain`, recomputed from the saved inputs.
+[W, H]. The kernels and the ``*_plain`` versions take every parameter already
+cast to ``x.dtype`` (the LN scale and bias too, as the TPU kernel casts them).
+:func:`ln_mlp` is differentiable, as the JAX ``custom_vjp`` is, and takes the
+parameters as the model holds them (the f32 masters): its forward casts them
+to ``x.dtype`` and runs the kernels, and its backward is the VJP of the
+model's unfused channel mix (``models.layers.channel_mlp``: LN with its f32
+affine, the weights cast to ``x.dtype``), recomputed on the saved masters.
+That is the counterpart of the JAX backward, the VJP of ``_plain_ln_mlp``;
+the kernel-rounding chain :func:`ln_mlp_plain` is the forward's plain
+version only.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import functools
 
 import torch
 
-from clip_mixer_tpu_torch.models.layers import quick_gelu
+from clip_mixer_tpu_torch.models.layers import channel_mlp, quick_gelu
 from clip_mixer_tpu_torch.ops.kernels import _build
 
 _P = ctypes.c_void_p
@@ -225,18 +231,19 @@ def plain_vjp(plain, saved, grad):
 
 class _LnMlp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, *args):
-        ctx.save_for_backward(*args)
-        return _forward(*args)
+    def forward(ctx, x, *params):
+        ctx.save_for_backward(x, *params)
+        return _forward(x, *(p.to(x.dtype) for p in params))
 
     @staticmethod
     def backward(ctx, grad):
-        return plain_vjp(ln_mlp_plain, ctx.saved_tensors, grad)
+        return plain_vjp(channel_mlp, ctx.saved_tensors, grad)
 
 
 def ln_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
     """x: [R, W] -> x + MLP(LN(x)), same shape and dtype; differentiable in
-    x and all six parameters."""
+    x and all six parameters, which it casts to ``x.dtype`` for the kernels
+    (gradients reach them in their own dtype)."""
     return _LnMlp.apply(x, ln_w, ln_b, w_in, b_in, w_out, b_out)
 
 

@@ -9,7 +9,12 @@ and keeps its names:
   answers that) and raises on what they do not take; it uses
   :func:`mixer_block_plain` only for tensors on the CPU.
 - :func:`mixer_block_fused` is the differentiable form, as the JAX
-  ``custom_vjp``: the kernels forward, the VJP of the plain chain backward.
+  ``custom_vjp``: it takes the block's f32 master parameters, casts them to
+  x's dtype for the kernels, and its backward is the VJP of the model's
+  unfused block (``models.layers.mixer_block_chain``, as
+  ``MixerBlock.forward`` with ``fused_mlp=False``) on the saved masters, the
+  counterpart of the JAX ``_plain_block_tbd``. The kernel-rounding chain
+  :func:`mixer_block_plain` is the forward's plain version only.
 - :func:`mixer_tower_fused` is the drop-in for ``MixerTower.forward`` on x
   [B, T, D]. No config field reaches it: a caller routes a tower through it.
 
@@ -36,7 +41,7 @@ from typing import Tuple
 
 import torch
 
-from clip_mixer_tpu_torch.models.layers import layer_norm, quick_gelu
+from clip_mixer_tpu_torch.models.layers import block_parameters, layer_norm, mixer_block_chain, quick_gelu
 from clip_mixer_tpu_torch.ops.kernels import _build
 from clip_mixer_tpu_torch.ops.kernels.ln_mlp import _on_card, ln_mlp_plain, ln_rows_plain, plain_vjp
 
@@ -98,12 +103,7 @@ def block_params(block, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
     kernel's order (as the TPU kernel casts them, LN parameters too).
     Linear weights stay in ``nn.Linear``'s (out, in) layout: the token
     weights are [U, T] and [T, U], the channel weights [H, D] and [D, H]."""
-    tm, cm = block.token_mix_seq, block.channel_mix_seq
-    ts = (
-        block.layerNorm1.weight, block.layerNorm1.bias, tm.lin1.weight, tm.lin1.bias, tm.lin2.weight, tm.lin2.bias,
-        block.layerNorm2.weight, block.layerNorm2.bias, cm.lin3.weight, cm.lin3.bias, cm.lin4.weight, cm.lin4.bias,
-    )
-    return tuple(t.to(dtype) for t in ts)
+    return tuple(t.to(dtype) for t in block_parameters(block))
 
 
 def _token_half(x, lt_w, lt_b, w1, b1, w2, b2) -> torch.Tensor:
@@ -264,21 +264,27 @@ fused_mixer_block_tbd.launches = 0
 token_mix.launches = 0
 
 
+def _model_block_tbd(x, *params) -> torch.Tensor:
+    """The model's unfused block on x [T, B, D], through its [B, T, D] view."""
+    return mixer_block_chain(x.transpose(0, 1), *params).transpose(0, 1)
+
+
 class _MixerBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, *params):
         ctx.save_for_backward(x, *params)
-        return _forward(x, *params)
+        return _forward(x, *(p.to(x.dtype) for p in params))
 
     @staticmethod
     def backward(ctx, grad):
-        return plain_vjp(_plain, ctx.saved_tensors, grad)
+        return plain_vjp(_model_block_tbd, ctx.saved_tensors, grad)
 
 
 def mixer_block_fused(block, x: torch.Tensor) -> torch.Tensor:
-    """Differentiable :func:`fused_mixer_block_tbd`: gradients reach x and,
-    through the casts, the block's f32 master parameters."""
-    return _MixerBlock.apply(x, *block_params(block, x.dtype))
+    """Differentiable :func:`fused_mixer_block_tbd`: takes the block's
+    parameters as it holds them (the f32 masters) and casts them for the
+    kernels itself; gradients reach x and the masters."""
+    return _MixerBlock.apply(x, *block_parameters(block))
 
 
 def mixer_tower_fused(tower, x: torch.Tensor) -> torch.Tensor:

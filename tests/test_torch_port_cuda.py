@@ -9,11 +9,13 @@ device. The file imports no JAX, so it also runs where JAX is absent:
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from clip_mixer_tpu_torch.models.layers import channel_mlp
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, init_mixer_block
 from clip_mixer_tpu_torch.ops.kernels import ln_mlp as kln
 from clip_mixer_tpu_torch.ops.kernels import preprocess as kpre
@@ -126,10 +128,18 @@ def test_stage_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kln.linear_residual(h, wo, bo, x.t().contiguous().t())
 
 
+PREPROCESS_CASES = [  # (input_hw, n_px, B): the bench front end, other aspect ratios, an upscale, small B
+    ((256, 256), 224, 16), ((256, 256), 224, 1), ((480, 640), 224, 8), ((300, 200), 224, 8),
+    ((300, 200), 224, 1), ((224, 224), 224, 4), ((64, 64), 32, 5), ((48, 80), 32, 3),
+    ((90, 131), 64, 3),  # W % 4 != 0: rows not 4-byte aligned, the kernel's byte loads
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_preprocess_kernel_matches_plain(cuda, dtype):
-    imgs = torch.randint(0, 256, (16, 256, 256, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(9))
-    bands = kpre.ResizeBands.build((256, 256), 224, cuda)
+@pytest.mark.parametrize("hw,n,B", PREPROCESS_CASES)
+def test_preprocess_kernel_matches_plain(cuda, hw, n, B, dtype):
+    imgs = torch.randint(0, 256, (B, *hw, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(9))
+    bands = kpre.ResizeBands.build(hw, n, cuda)
     before = kpre.preprocess.launches
     got = kpre.preprocess(imgs.to(cuda), bands, dtype)
     torch.cuda.synchronize()
@@ -140,6 +150,25 @@ def test_preprocess_kernel_matches_plain(cuda, dtype):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     else:
         assert _rel_err(got, want) <= 1e-2
+
+
+def test_preprocess_check_fails_a_dropped_tap(cuda):
+    """The plain version with one R_w tap column zeroed fails the f32 check."""
+    imgs = torch.randint(0, 256, (4, 256, 256, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(10))
+    bands = kpre.ResizeBands.build((256, 256), 224, cuda)
+    got = kpre.preprocess(imgs.to(cuda), bands, torch.float32)
+    rw = bands.rw.clone()
+    rows = torch.arange(rw.shape[0], device=cuda)
+    rw[rows, bands.rw_start.long() + bands.rw_taps.shape[1] // 2] = 0.0
+    faulty = kpre.preprocess_plain(imgs.to(cuda), dataclasses.replace(bands, rw=rw), torch.float32)
+    assert float((got - faulty).abs().max()) > 1e-4
+
+
+def test_preprocess_kernel_takes_an_empty_batch(cuda):
+    bands = kpre.ResizeBands.build((256, 256), 224, cuda)
+    before = kpre.preprocess.launches
+    out = kpre.preprocess(torch.zeros((0, 256, 256, 3), dtype=torch.uint8, device=cuda), bands)
+    assert out.shape == (0, 224, 224, 3) and kpre.preprocess.launches == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -241,27 +270,33 @@ def test_mixer_block_kernel_reads_the_tower_layout(cuda):
     assert out.shape == xb.shape and out.is_contiguous()
 
 
-def test_backward_through_the_kernels_matches_plain_autograd(cuda):
-    """Gradients reach x and every parameter through both kernels (f32)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_through_the_kernels_matches_plain_autograd(cuda, dtype):
+    """Gradients reach x and every f32 master parameter through both
+    kernels, and equal autograd of the model's unfused chain (the block's
+    own forward with fused_mlp=False; channel_mlp) on the same inputs."""
+    tol = dict(atol=1e-4, rtol=1e-3) if dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)
     block, x = _block_case(8, 50, 768, torch.float32, cuda, seed=13, text_tower=False)
-    x.requires_grad_()
+    x = x.to(dtype).requires_grad_()
     inputs = [x, *block.parameters()]
-    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(14)).to(cuda)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(14)).to(device=cuda, dtype=dtype)
     before = fused_mixer_block_tbd.launches
     got = torch.autograd.grad(mixer_block_fused(block, x), inputs, g)
     assert fused_mixer_block_tbd.launches == before + 1
-    want = torch.autograd.grad(mixer_block_plain(block, x), inputs, g)
+    want = torch.autograd.grad(block(x.transpose(0, 1)).transpose(0, 1), inputs, g)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)  # test_pallas_kernels.py:121
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, **tol)  # test_pallas_kernels.py:121 in f32
 
-    args = [t.requires_grad_() for t in _ln_mlp_args(400, 768, torch.float32, cuda, seed=15)]
-    g = torch.randn(400, 768, generator=torch.Generator().manual_seed(16)).to(cuda)
+    x, *params = [t.requires_grad_() for t in _ln_mlp_args(400, 768, torch.float32, cuda, seed=15)]
+    x = x.detach().to(dtype).requires_grad_()
+    g = torch.randn(400, 768, generator=torch.Generator().manual_seed(16)).to(device=cuda, dtype=dtype)
     before = ln_mlp.launches
-    got = torch.autograd.grad(ln_mlp(*args), args, g)
+    got = torch.autograd.grad(ln_mlp(x, *params), [x, *params], g)
     assert ln_mlp.launches == before + 1
-    want = torch.autograd.grad(ln_mlp_plain(*args), args, g)
+    want = torch.autograd.grad(channel_mlp(x, *params), [x, *params], g)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+        torch.testing.assert_close(a, b, **tol)
 
 
 def test_mixer_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
