@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -7,10 +7,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. Build every ``clip_mixer_tpu_torch/csrc/*.cu`` with ``nvcc`` (one process
    per source, all started together) and hold each kernel against its plain
-   PyTorch version on the card at the shapes the serving paths give it
-   (``ln_mlp``, ``preprocess`` at B = 128, 8 and 1 and at other input
-   shapes, odd widths too, in bf16 and f32, and ``fused_mixer_block_tbd`` at both
-   towers' buckets 128 and 8, a B no batch tile divides, and f32), and each of
+   PyTorch version on the card at the shapes the serving and training paths
+   give it (``ln_mlp`` at both towers' buckets 128 and 8 and at the train
+   batches 256 and 4096, ``preprocess`` at B = 128, 8 and 1 and at other
+   input shapes, odd widths too, in bf16 and f32, and ``fused_mixer_block_tbd``
+   at both towers' buckets 128 and 8 and the train batch 256, a B no batch
+   tile divides, and f32), and each of
    ``ln_mlp``'s three bf16 stages (LN pass, GEMM 1 with QuickGELU, GEMM 2
    with the residual) against its plain version, and the bf16 block's
    first launch alone (``token_mix``: z and y2 = LN_ch(z)) against
@@ -43,6 +45,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    chain for the same function, ``torch_chain_ms``: the non-fused channel
    mix, and ``MixerBlock.forward``), and each tower at bucket 128 three
    ways: through ``mixer_tower_fused``, with ``fused_mlp=True``, and plain.
+4. Training, with every launch counter set to 0 before each run: full-width
+   Mixer-B/32 (bf16 compute, f32 masters, ``TrainConfig`` defaults, weights
+   from seed 0) takes 8 steps of ``parallel/train_step.py`` on a fixed
+   batch of 256 (numpy seed) on each of three routes: plain, ``fused_mlp``
+   (24 ``ln_mlp`` launches a step) and fused-block (``route_towers``; 24
+   ``fused_mixer_block`` launches a step). Each route's loss must fall, and
+   at step 1 the kernel routes' loss and every parameter's gradient must
+   match the plain route's. Then GradCache (``accum_steps=4``): its first
+   step against the full batch's; plain under each remat policy at 256
+   (the same loss as without remat, peak memory ordered none < mlp_hidden <
+   all_hidden < no remat), and ``fused_mlp`` with ``all_hidden``; and at
+   the reference's per-card batch of 4096 ``fused_mlp`` with full remat (24
+   ``ln_mlp`` launches a step: a block's recompute launches nothing) and
+   plain with ``accum_steps=8``, two steps each, the second timed, whose
+   first steps' loss and gradient norm must agree.
+   Reports step time (CUDA events over steps 3-8 on the routes), images a
+   second, peak memory and
+   ``train_mfu`` (3x the analytic forward FLOPs of both towers over the
+   989 TFLOP/s bf16 peak).
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -52,7 +73,6 @@ Without a CUDA device it exits 1 before doing anything.
 from __future__ import annotations
 
 import copy
-import functools
 import json
 import subprocess
 import sys
@@ -87,9 +107,16 @@ PREPROCESS_F32_ATOL = 1e-4  # banded vs dense f32 sums: summation order only
 L2_BYTES = 50 * 2**20  # an H100's L2 cache
 COSINE_MIN = 0.999
 
-LN_MLP_CASES = [  # (label, R, W, H, dtype): the towers at buckets 128 and 8, ragged R, 128-wide tiles, f32
+# (label, R, W, H, dtype): the towers at buckets 128 and 8, at the train
+# batch of 256 and the per-card batch of 4096 (phase 4), ragged R, 128-wide
+# tiles, f32
+LN_MLP_CASES = [
     ("vision", 128 * 50, 768, 3072, torch.bfloat16),
     ("text", 128 * 77, 512, 2048, torch.bfloat16),
+    ("vision_train", 256 * 50, 768, 3072, torch.bfloat16),
+    ("text_train", 256 * 77, 512, 2048, torch.bfloat16),
+    ("vision_b4096", 4096 * 50, 768, 3072, torch.bfloat16),
+    ("text_b4096", 4096 * 77, 512, 2048, torch.bfloat16),
     ("vision_b8", 8 * 50, 768, 3072, torch.bfloat16),
     ("ragged", 3 * 77, 512, 2048, torch.bfloat16),
     ("narrow", 151, 384, 1536, torch.bfloat16),  # W % 256 != 0: GEMM 2 on 128-column tiles
@@ -111,9 +138,13 @@ PREPROCESS_CASES = [  # (label, input_hw, n_px, B, dtype): the bench front end, 
     ("90x131_f32", (90, 131), 64, 3, torch.float32),  # W % 4 != 0: the kernel's byte loads
 ]
 PREPROCESS_TIMED = ("bf16", "b8_bf16", "f32")  # timed warm and cold in phase 3
-BLOCK_CASES = [  # (label, B, T, D, dtype): both towers at buckets 128 and 8, a B no batch tile divides, f32
+# (label, B, T, D, dtype): both towers at buckets 128 and 8 and at the train
+# batch of 256 (phase 4), a B no batch tile divides, f32
+BLOCK_CASES = [
     ("vision", 128, 50, 768, torch.bfloat16),
     ("text", 128, 77, 512, torch.bfloat16),
+    ("vision_train", 256, 50, 768, torch.bfloat16),
+    ("text_train", 256, 77, 512, torch.bfloat16),
     ("vision_b8", 8, 50, 768, torch.bfloat16),
     ("text_b12", 12, 77, 512, torch.bfloat16),
     ("f32", 8, 50, 768, torch.float32),
@@ -460,22 +491,11 @@ def check_gradients(dev):
             log(f"{name} {dtype} backward: {len(inputs)} gradients match autograd of the unfused chain")
 
 
-def route_towers(model, fused: bool):
-    """Bind (or unbind) both towers' forward to ``mixer_tower_fused``; the
-    model's state-dict keys and config do not change."""
-    from clip_mixer_tpu_torch.ops.kernels.mixer_block import mixer_tower_fused
-
-    for tower in (model.visual.transformer, model.transformer):
-        if fused:
-            tower.forward = functools.partial(mixer_tower_fused, tower)
-        else:
-            del tower.forward
-
-
 def check_small_model(dev):
     """A two-layer f32 model with the fused channel mix, then with its towers
     through ``mixer_tower_fused``: card against CPU."""
     from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
     from clip_mixer_tpu_torch.text.tokenize import tokenize
 
     res = PRESETS["mixer-debug"].image_resolution
@@ -648,6 +668,7 @@ def fused_block_path(dev, counters):
     """Full-width Mixer-B/32 bf16 served with both towers through
     ``mixer_tower_fused``; returns (summary, launches, the model)."""
     from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
     from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess
     from clip_mixer_tpu_torch.serving import InferenceEngine
 
@@ -854,6 +875,300 @@ def time_kernels(ln_cases, pre_cases, block_cases, launches):
     return table
 
 
+# ---- phase 4: training ----------------------------------------------------------
+
+TRAIN_PRESET = "mixer-b32"
+TRAIN_STEPS = 8  # on each route; steps 3..8 are timed
+TRAIN_WARMUP = 2
+TRAIN_B = 256
+BIG_B = 4096  # the reference's 32 768 global batch over 8 cards
+BIG_ACCUM = 8
+GRADCACHE_ACCUM = 4
+SOT, EOT = 49406, 49407
+# Limits from the first two runs on an H100 80GB HBM3 (PERF.md §6), bf16. Each
+# route's 8th loss read 0.810 of its first (a spike at step 4, where the lr
+# peaks, included); at step 1 the kernel routes' loss read 0.9-1.1e-4 from
+# the plain route's, every parameter's gradient 2.6-2.8e-2 (median) and at
+# most 3.6e-2 / 3.9e-2 (relative Frobenius): the kernels round the forward
+# at other points than the plain chain, over 12 blocks. GradCache read 0 on
+# the loss and 5.9e-6 on the gradient norm.
+TRAIN_LOSS_FALL = 0.9  # each route's 8th loss <= 0.9 x its first
+ROUTE_LOSS_TOL = 1e-3  # |loss_route - loss_plain| / loss_plain at step 1
+ROUTE_GRAD_TOL = 6e-2  # per parameter, relative Frobenius against the plain route at step 1
+# A token-mix output bias (lin2.bias) adds one constant to a token across the
+# width, and every consumer of the token mix's output is a LayerNorm over
+# the width (the next block's, ln_post, ln_final): its exact gradient is
+# zero, and any route's is rounding noise. It is held on its size against
+# its block's lin2.weight gradient, not on its difference between routes.
+NULL_GRAD = "token_mix_seq.lin2.bias"
+NULL_GRAD_RATIO = 1e-2  # read at most 2.6e-3
+GRADCACHE_LOSS_TOL = 1e-4  # accum_steps=4 against 1: |dloss| / loss
+GRADCACHE_NORM_TOL = 1e-4  # and |d grad_norm| / grad_norm
+REMAT_POLICIES = ("none", "mlp_hidden", "all_hidden")
+# A remat step's forward is the same computation as without remat: its loss
+# must be the same bits, and its gradient norm read the same too (H100
+# runs, PERF.md §6); held at the GradCache limit.
+REMAT_NORM_TOL = GRADCACHE_NORM_TOL
+# B = 4096, step 1: fused_mlp + full remat against plain accum_steps=8, two
+# bf16 routes of one step (the kernel's rounding points against the plain
+# chain's, and the microbatches' sums against the full batch's). Read:
+# loss 6.0e-6 and gradient norm 2.8e-3 relative (H100, PERF.md §6; at
+# B = 256 the routes read 1.1e-4 and 5.7e-4). The gradient norm is held at
+# 3.5x its reading, the loss at the B = 256 route limit.
+BIG_LOSS_TOL = ROUTE_LOSS_TOL
+BIG_NORM_TOL = 1e-2
+
+
+def train_batch(cfg, B, seed):
+    """A fixed batch from a numpy seed: uint8 [B, R, R, 3] images and token
+    rows SOT, random ids, EOT (the argmax id), zeros."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (B, cfg.image_resolution, cfg.image_resolution, 3), dtype=np.uint8)
+    ctx = cfg.context_length
+    texts = rng.integers(1, SOT, (B, ctx)).astype(np.int32)
+    ends = rng.integers(3, ctx, B)
+    texts[:, 0] = SOT
+    texts[np.arange(B), ends] = EOT
+    texts[np.arange(ctx)[None, :] > ends[:, None]] = 0
+    return {"images": images, "texts": texts}
+
+
+def train_flops_per_sample(cfg) -> float:
+    """3 x the analytic forward FLOPs of both towers: ``bench.py``'s vision
+    formula (patchify, mixer tower, proj) without its resize, since the
+    train step takes images at the model's resolution, and the same tower
+    formula for text (77 tokens, width 512) with its projection."""
+    def tower(t, w, layers):
+        return layers * (2 * (2 * w * t * 4 * t) + 2 * (2 * t * w * 4 * w))
+
+    g, p, w = cfg.grid_size, cfg.vision_patch_size, cfg.vision_width
+    vision = 2 * (g * g) * (p * p * 3) * w + tower(cfg.vision_tokens, w, cfg.vision_layers) + 2 * w * cfg.embed_dim
+    text = tower(cfg.context_length, cfg.text_width, cfg.text_layers) + 2 * cfg.text_width * cfg.embed_dim
+    return 3.0 * float(vision + text)
+
+
+def train_setup(cfg, dev, fused_block=False, accum_steps=1, steps=TRAIN_STEPS):
+    """Mixer CLIP from seed 0 (optionally with its towers through
+    ``mixer_tower_fused``), its state and its train step at TrainConfig's
+    defaults, with ``total_steps`` the steps run."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    tcfg = TrainConfig()
+    model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    if fused_block:
+        route_towers(model, True)
+    opt = make_optimizer(tcfg, total_steps=steps)
+    return init_train_state(model, opt), make_train_step(cfg, tcfg, opt, accum_steps=accum_steps)
+
+
+def on_device(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_route(dev, counters, route, batch):
+    """TRAIN_STEPS steps on one route from seed 0; steps after the first
+    TRAIN_WARMUP timed with CUDA events. Returns the readings, the step-1
+    gradients (on the host) and the launches."""
+    from clip_mixer_tpu_torch import PRESETS
+
+    cfg = PRESETS[TRAIN_PRESET].replace(fused_mlp=route == "fused_mlp")
+    state, step = train_setup(cfg, dev, fused_block=route == "fused_block")
+    free_card()
+    counters.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics, grads1 = [], None
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            start.record()
+        state, m = step(state, batch)
+        metrics.append(m)
+        if i == 0:
+            grads1 = {n: p.grad.detach().float().cpu() for n, p in state.model.named_parameters()}
+    end.record()
+    end.synchronize()
+    launches = counters.read()
+    ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP)
+    B = batch["images"].shape[0]
+    out = {
+        "step_ms": ms,
+        "images_per_s": B / ms * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "train_mfu": B * train_flops_per_sample(cfg) / (ms * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16],
+        "losses": [float(m["loss"]) for m in metrics],
+        "grad_norms": [float(m["grad_norm"]) for m in metrics],
+        "logit_scale": float(metrics[-1]["logit_scale"]),
+        "launches": launches,
+    }
+    del state, step, metrics
+    free_card()
+    return out, grads1, launches
+
+
+def grad_agreement(got, want):
+    """Per parameter, the relative Frobenius error of ``got`` against
+    ``want``; and for each token-mix output bias (NULL_GRAD), the larger of
+    the two routes' gradient norms over the plain route's norm for the same
+    block's lin2.weight."""
+    errs, null = {}, {}
+    for n, w in want.items():
+        if n.endswith(NULL_GRAD):
+            ref = want[n.replace(".bias", ".weight")].norm()
+            null[n] = float(torch.maximum(got[n].norm(), w.norm()) / ref)
+        else:
+            errs[n] = float((got[n] - w).norm() / w.norm())
+    return errs, null
+
+
+def two_steps(dev, counters, cfg, batch, **kw):
+    """Two steps from seed 0: the first's loss and gradient norm, the second
+    timed with CUDA events (the first pays the allocator's first calls), the
+    peak memory and the launches of both."""
+    state, step = train_setup(cfg, dev, steps=2, **kw)
+    free_card()
+    counters.reset()
+    state, m1 = step(state, batch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, m2 = step(state, batch)
+    end.record()
+    end.synchronize()
+    B = batch["images"].shape[0]
+    ms = start.elapsed_time(end)
+    out = dict(B=B, loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]), loss_step2=float(m2["loss"]),
+               step_ms=ms, images_per_s=B / ms * 1e3, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               train_mfu=B * train_flops_per_sample(cfg) / (ms * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16],
+               launches=counters.read())
+    require(all(np.isfinite([out["loss"], out["grad_norm"], out["loss_step2"]])), f"two steps: {out}")
+    del state, step, m1, m2
+    free_card()
+    return out
+
+
+def train_path(dev, counters):
+    """Phase 4: full-width Mixer-B/32 (bf16 compute, f32 masters) trains
+    TRAIN_STEPS steps at B = TRAIN_B on three routes from one init; then
+    GradCache against the full batch; then the reference's per-card batch
+    with full remat and with accumulation."""
+    from clip_mixer_tpu_torch import PRESETS
+
+    t0 = time.perf_counter()
+    free_card()
+    # what earlier phases left allocated, inside every peak below
+    summary = {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    cfg = PRESETS[TRAIN_PRESET]
+    blocks = cfg.vision_layers + cfg.text_layers
+    batch = on_device(train_batch(cfg, TRAIN_B, seed=0), dev)
+    summary.update(B=TRAIN_B, steps=TRAIN_STEPS)
+    grads = {}
+    per_step = {"plain": {}, "fused_mlp": {"ln_mlp": blocks}, "fused_block": {"fused_mixer_block": blocks}}
+    for route, expected in per_step.items():
+        r, grads[route], launches = train_route(dev, counters, route, batch)
+        for name, n in launches.items():
+            require(n == expected.get(name, 0) * TRAIN_STEPS,
+                    f"train {route}: {name} launched {n} times in {TRAIN_STEPS} steps, expected "
+                    f"{expected.get(name, 0)} a step")
+        losses = r["losses"]
+        require(all(np.isfinite(losses)) and all(np.isfinite(r["grad_norms"])), f"train {route}: {losses}")
+        require(losses[-1] <= TRAIN_LOSS_FALL * losses[0], f"train {route}: loss {losses[0]} -> {losses[-1]}")
+        summary[route] = r
+        log(f"train {route} B={TRAIN_B}: {r['step_ms']:.2f} ms/step, {r['images_per_s']:.0f} img/s, "
+            f"peak {r['peak_mem_gb']:.2f} GB, train_mfu {r['train_mfu']:.3f}, losses {losses}")
+    plain_loss = summary["plain"]["losses"][0]
+    for route in ("fused_mlp", "fused_block"):
+        dl = abs(summary[route]["losses"][0] - plain_loss) / plain_loss
+        errs, null = grad_agreement(grads[route], grads["plain"])
+        ranked = sorted(errs, key=errs.get, reverse=True)
+        worst, worst_null = ranked[0], max(null, key=null.get)
+        summary[route]["step1_vs_plain"] = {
+            "loss_rel": dl, "grad_rel_max": errs[worst], "grad_rel_max_param": worst,
+            "grad_rel_median": float(np.median(list(errs.values()))),
+            "grad_rel_top5": {n: errs[n] for n in ranked[:5]},
+            "null_grad_ratio_max": null[worst_null], "null_grad_ratio_max_param": worst_null,
+        }
+        log(f"train {route} step 1 against plain: {summary[route]['step1_vs_plain']}")
+        require(dl <= ROUTE_LOSS_TOL, f"train {route}: step-1 loss {dl} from the plain route's > {ROUTE_LOSS_TOL}")
+        require(errs[worst] <= ROUTE_GRAD_TOL,
+                f"train {route}: step-1 gradient of {worst} {errs[worst]} from the plain route's > {ROUTE_GRAD_TOL}")
+        require(null[worst_null] <= NULL_GRAD_RATIO,
+                f"train {route}: step-1 gradient of {worst_null} is {null[worst_null]} of its lin2.weight's, "
+                f"> {NULL_GRAD_RATIO}")
+    summary["tol"] = (f"step 1 against plain: loss <= {ROUTE_LOSS_TOL} relative, every parameter's gradient "
+                      f"<= {ROUTE_GRAD_TOL} relative Frobenius but the token-mix output biases, whose exact "
+                      f"gradient is zero: <= {NULL_GRAD_RATIO} of their block's lin2.weight gradient on both routes; "
+                      f"8th loss <= {TRAIN_LOSS_FALL} x the first")
+    del grads
+
+    # 4b: GradCache on the plain route, its step 1 against the full batch's
+    gc_step = two_steps(dev, counters, cfg, batch, accum_steps=GRADCACHE_ACCUM)
+    full = summary["plain"]
+    gc_step["loss_rel"] = abs(gc_step["loss"] - full["losses"][0]) / full["losses"][0]
+    gc_step["grad_norm_rel"] = abs(gc_step["grad_norm"] - full["grad_norms"][0]) / full["grad_norms"][0]
+    summary[f"gradcache_accum{GRADCACHE_ACCUM}"] = gc_step
+    log(f"train GradCache accum {GRADCACHE_ACCUM}: {gc_step}")
+    require(gc_step["loss_rel"] <= GRADCACHE_LOSS_TOL and gc_step["grad_norm_rel"] <= GRADCACHE_NORM_TOL,
+            f"GradCache accum_steps={GRADCACHE_ACCUM} against the full batch: {gc_step}")
+
+    # 4c: what each remat policy saves at B = 256, then the reference's
+    # per-card batch
+    plain1 = summary["plain"]["losses"][0], summary["plain"]["grad_norms"][0]
+    fused1 = summary["fused_mlp"]["losses"][0], summary["fused_mlp"]["grad_norms"][0]
+    remat_runs = [(f"plain_remat_{p}_B{TRAIN_B}", cfg.replace(remat=True, remat_policy=p), plain1, {})
+                  for p in REMAT_POLICIES]
+    remat_runs.append((f"fused_mlp_remat_all_hidden_B{TRAIN_B}",
+                       cfg.replace(fused_mlp=True, remat=True, remat_policy="all_hidden"), fused1,
+                       {"ln_mlp": 2 * blocks}))
+    for key, remat_cfg, (loss1, norm1), launches in remat_runs:
+        r = two_steps(dev, counters, remat_cfg, batch)
+        summary[key] = r
+        log(f"train {key}: {r}")
+        require(r["loss"] == loss1, f"{key}: step-1 loss {r['loss']}, {loss1} without remat")
+        require(abs(r["grad_norm"] - norm1) <= REMAT_NORM_TOL * norm1,
+                f"{key}: step-1 gradient norm {r['grad_norm']}, {norm1} without remat")
+        for name, n in r["launches"].items():
+            require(n == launches.get(name, 0), f"{key}: {name} launched {n} times in two steps")
+    peaks = [summary[f"plain_remat_{p}_B{TRAIN_B}"]["peak_mem_gb"] for p in REMAT_POLICIES]
+    peaks.append(summary["plain"]["peak_mem_gb"])
+    require(all(a < b for a, b in zip(peaks, peaks[1:])),
+            f"B={TRAIN_B} peak memory under remat none, mlp_hidden, all_hidden and without: {peaks} GB")
+    del batch
+    free_card()
+    big = on_device(train_batch(cfg, BIG_B, seed=1), dev)
+    r = two_steps(dev, counters, cfg.replace(fused_mlp=True, remat=True), big)
+    require(r["launches"]["ln_mlp"] == 2 * blocks, f"B={BIG_B} fused_mlp + remat: launches {r['launches']} "
+            f"in two steps, expected ln_mlp {blocks} a step (a block's recompute launches nothing)")
+    summary[f"fused_mlp_remat_B{BIG_B}"] = r
+    r = two_steps(dev, counters, cfg, big, accum_steps=BIG_ACCUM)
+    require(sum(r["launches"].values()) == 0, f"B={BIG_B} plain accum: launches {r['launches']}")
+    summary[f"plain_accum{BIG_ACCUM}_B{BIG_B}"] = r
+    remat_big = summary[f"fused_mlp_remat_B{BIG_B}"]
+    agree = {"loss_rel": abs(remat_big["loss"] - r["loss"]) / r["loss"],
+             "grad_norm_rel": abs(remat_big["grad_norm"] - r["grad_norm"]) / r["grad_norm"],
+             "tol": f"loss <= {BIG_LOSS_TOL}, gradient norm <= {BIG_NORM_TOL} relative (bf16, step 1)"}
+    summary[f"B{BIG_B}_fused_mlp_remat_vs_plain_accum{BIG_ACCUM}"] = agree
+    log(f"train B={BIG_B} fused_mlp + remat against plain accum {BIG_ACCUM}: {agree}")
+    require(agree["loss_rel"] <= BIG_LOSS_TOL and agree["grad_norm_rel"] <= BIG_NORM_TOL,
+            f"B={BIG_B}: fused_mlp + remat against plain accum_steps={BIG_ACCUM}: {agree}")
+    for k in (f"fused_mlp_remat_B{BIG_B}", f"plain_accum{BIG_ACCUM}_B{BIG_B}"):
+        log(f"train {k}: {summary[k]}")
+    del big
+    free_card()
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -907,7 +1222,13 @@ def main() -> int:
     # each kernel's launches on the path that carries it
     path_launches = {"ln_mlp": launches["ln_mlp"], "preprocess": launches["preprocess"],
                      "fused_mixer_block": block_launches["fused_mixer_block"]}
-    emit({"kernels": time_kernels(ln_cases, pre_cases, block_cases, path_launches)})
+    kernels = time_kernels(ln_cases, pre_cases, block_cases, path_launches)
+
+    train = train_path(dev, counters)
+    emit({"train": train})
+    for row in kernels:  # each kernel's launches in the train phase's 8 steps on its route
+        row["train_launches"] = {r: train[r]["launches"][row["name"]] for r in ("plain", "fused_mlp", "fused_block")}
+    emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
-"""Model configuration for the PyTorch port.
+"""Model and training configuration for the PyTorch port.
 
-A field-for-field copy of ``clip_mixer_tpu.config.CLIPConfig`` and its
-``PRESETS`` (the port imports nothing of the JAX package). Fields that only
-the JAX package's training and parallel paths read (``remat``,
-``model_axis``, ``pipeline_*``) are kept so a configuration moves between
-the two packages unchanged; the port's towers refuse the ones they do not
+Field-for-field copies of ``clip_mixer_tpu.config.CLIPConfig``, its
+``PRESETS`` and ``TrainConfig`` (the port imports nothing of the JAX
+package). Fields that only the JAX package's multi-device and orchestration
+paths read (``model_axis``, ``pipeline_*``, ``fsdp``, the checkpoint and
+preemption cadences, ...) are kept so a configuration moves between the two
+packages unchanged; the port refuses or ignores the ones it does not
 implement yet.
 """
 
@@ -178,3 +179,71 @@ PRESETS = {
         text_heads=16,
     ),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation hyperparameters; defaults are the reference run's.
+
+    The port's single-device train step (``parallel/train_step.py``) reads
+    the optimiser, schedule, loss, accumulation, clamp, EMA, freeze and
+    augmentation fields. ``fsdp``, ``pipeline_microbatches``, the
+    checkpoint, validation and preemption cadences, the fault drills,
+    ``freeze_serving`` and ``max_inflight_steps`` belong to the trainer and
+    the multi-device steps, which are not ported yet; they are carried and
+    validated as the JAX package validates them.
+    """
+
+    global_batch_size: int = 32768
+    epochs: int = 32
+    steps_per_epoch: Optional[int] = None
+    learning_rate: float = 5e-4
+    min_lr_ratio: float = 0.01
+    warmup_steps: int = 2
+    weight_decay: float = 0.2  # only on parameters with ndim >= 2
+    beta1: float = 0.9
+    beta2: float = 0.98
+    eps: float = 1e-6
+    grad_clip_norm: float = 20.0
+    # Exact (GradCache) accumulation: the step's batch runs as this many
+    # microbatches while the loss still sees the whole batch. 1 = off.
+    accum_steps: int = 1
+    fsdp: bool = False
+    pipeline_microbatches: int = 8
+    logit_scale_max: float = math.log(100.0)
+    checkpoint_every_steps: int = 400
+    keep_checkpoints: int = 3
+    preemption_sync_every_steps: int = 20
+    validate_every_steps: Optional[int] = None
+    abort_on_nonfinite_loss: bool = True
+    freeze_serving: bool = False
+    crash_after_steps: Optional[int] = None
+    hang_after_steps: Optional[int] = None
+    # "info_nce" (softmax) or "siglip" (pairwise sigmoid; needs a model
+    # with logit_bias_init set)
+    loss: str = "info_nce"
+    # EMA of the post-step parameters, decay per step; None = off
+    ema_decay: Optional[float] = None
+    # Locked-tower training: "visual" or "text" gets no gradient, no
+    # moments and no weight decay
+    freeze: Optional[str] = None
+    # In-step random crop to the model's resolution + 50% horizontal flip,
+    # keyed on (seed, step) (ops/augment.py)
+    augment: bool = False
+    max_inflight_steps: int = 2
+    seed: int = 0
+    # normalisation applied inside the train step to the uint8 batch
+    image_mean: Tuple[float, float, float] = (0.48145466, 0.4578275, 0.40821073)
+    image_std: Tuple[float, float, float] = (0.26862954, 0.26130258, 0.27577711)
+
+    def __post_init__(self):
+        if self.loss not in ("info_nce", "siglip"):
+            raise ValueError(f"loss must be 'info_nce' or 'siglip' (got {self.loss!r})")
+        if self.freeze not in (None, "visual", "text"):
+            raise ValueError(f"freeze must be 'visual' or 'text' (got {self.freeze!r})")
+        if self.max_inflight_steps < 1:
+            raise ValueError(f"max_inflight_steps must be >= 1 (got {self.max_inflight_steps})")
+        if self.ema_decay is not None and not (0.0 < self.ema_decay < 1.0):
+            raise ValueError(
+                f"ema_decay must be in (0, 1) (got {self.ema_decay}); typical values 0.999-0.9999"
+            )

@@ -2,10 +2,12 @@
 
 Counterpart of ``clip_mixer_tpu/models/clip.py``. ``forward`` returns the
 reference triple (image features, text features, exp(logit_scale)) with both
-feature sets L2-normalised; :meth:`CLIP.logits` is the demo path. The
-module's state-dict keys are the reference checkpoint's (``visual.*``,
-``token_embedding.weight``, ``transformer.mixBlocks.*``, ``ln_final.*``,
-``text_projection``, ``logit_scale``).
+feature sets L2-normalised; :meth:`CLIP.forward_train` adds the (empty)
+batch-norm statistics of the JAX training forward; :meth:`CLIP.logits` is
+the demo path. The module's state-dict keys are the reference checkpoint's
+(``visual.*``, ``token_embedding.weight``, ``transformer.mixBlocks.*``,
+``ln_final.*``, ``text_projection``, ``logit_scale``), plus ``logit_bias``
+when ``cfg.logit_bias_init`` is set (the SigLIP loss's learnable bias).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from clip_mixer_tpu_torch.models.layers import LayerNorm
 from clip_mixer_tpu_torch.models.mixer import MixerTower, init_mixer_tower
-from clip_mixer_tpu_torch.models.towers import VisionEncoder, require_mixer, text_encoder
+from clip_mixer_tpu_torch.models.towers import VisionEncoder, remat_policy, require_mixer, text_encoder
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -41,10 +43,12 @@ class CLIP(nn.Module):
         width = cfg.text_width
         self.visual = VisionEncoder(cfg)
         self.token_embedding = nn.Embedding(cfg.vocab_size, width)
-        self.transformer = MixerTower(width, cfg.context_length, cfg.text_layers, cfg.fused_mlp)
+        self.transformer = MixerTower(width, cfg.context_length, cfg.text_layers, cfg.fused_mlp, remat_policy(cfg))
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init, dtype=torch.float32))
+        if cfg.logit_bias_init is not None:
+            self.logit_bias = nn.Parameter(torch.tensor(cfg.logit_bias_init, dtype=torch.float32))
         self.init_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
         self.to(device)
 
@@ -58,6 +62,8 @@ class CLIP(nn.Module):
         self.ln_final.bias.zero_()
         init_mixer_tower(self.transformer, text_tower=True, generator=generator)
         self.logit_scale.fill_(self.cfg.logit_scale_init)
+        if self.cfg.logit_bias_init is not None:
+            self.logit_bias.fill_(self.cfg.logit_bias_init)
 
     @property
     def device(self) -> torch.device:
@@ -74,6 +80,13 @@ class CLIP(nn.Module):
         img = l2_normalize(self.encode_image(images))
         txt = l2_normalize(self.encode_text(text))
         return img, txt, self.logit_scale.exp()
+
+    def forward_train(self, images: torch.Tensor, text: torch.Tensor):
+        """The training forward: (image features, text features,
+        exp(logit_scale), {}); the last is the batch-norm statistics of the
+        JAX training forward, empty for mixer towers."""
+        img, txt, scale = self(images, text)
+        return img, txt, scale, {}
 
     def logits(self, images: torch.Tensor, text: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits_per_image, logits_per_text)."""

@@ -106,9 +106,9 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
     put_tower("transformer", t["tower"])
     put_ln("ln_final", t["ln_final"])
     sd["text_projection"] = _f32(t["projection"])
-    # A "logit_bias" leaf (sigmoid-loss training only) has no slot here and
-    # does not change inference.
     sd["logit_scale"] = _f32(tree["logit_scale"])
+    if "logit_bias" in tree:  # the SigLIP loss's learnable bias
+        sd["logit_bias"] = _f32(tree["logit_bias"])
     return _tensors(sd)
 
 

@@ -8,7 +8,9 @@ Counterpart of ``clip_mixer_tpu/models/layers.py``. Linear weights here are
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -30,6 +32,27 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: f
     return y.to(x.dtype)
 
 
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tags the products computed inside as ``name`` (``"mlp_hidden"``,
+    ``"token_hidden"``: the hidden pre-activations), as ``checkpoint_name``
+    does in the JAX package, so that a remat policy can keep them
+    (``models/mixer.py``)."""
+    outer, _TAG.name = checkpoint_tag(), name
+    try:
+        yield
+    finally:
+        _TAG.name = outer
+
+
+def checkpoint_tag():
+    """The name given by the innermost :func:`checkpoint_name`, or None."""
+    return getattr(_TAG, "name", None)
+
+
 def channel_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
     """x + QuickGELU(LN(x) W_in^T + b_in) W_out^T + b_out on x [..., W], the
     model's unfused channel mix: LN with its affine in f32 (:func:`layer_norm`),
@@ -37,8 +60,10 @@ def channel_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
     ``nn.Linear``'s (out, in) layout."""
     dt = x.dtype
     y = layer_norm(x, ln_w, ln_b)
-    h = y @ w_in.to(dt).t() + b_in.to(dt)
-    h = quick_gelu(h)
+    w_in = w_in.to(dt)
+    with checkpoint_name("mlp_hidden"):
+        h = y @ w_in.t()
+    h = quick_gelu(h + b_in.to(dt))
     h = h @ w_out.to(dt).t() + b_out.to(dt)
     return x + h
 
@@ -49,7 +74,9 @@ def token_mix_branch(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     dt = x.dtype
     y = layer_norm(x, ln_w, ln_b)
     # w1 is [4T, T] (out, in): u indexes the hidden tokens.
-    h = torch.einsum("btw,ut->buw", y, w1.to(dt))
+    w1 = w1.to(dt)
+    with checkpoint_name("token_hidden"):
+        h = torch.einsum("btw,ut->buw", y, w1)
     h = h + b1.to(dt)[:, None]
     h = quick_gelu(h)
     h = torch.einsum("buw,tu->btw", h, w2.to(dt))

@@ -7,6 +7,12 @@ over the token axis (``btw,ut->buw``) with per-token biases, so the width
 stays the last dimension for both mixes. The tower is an ``nn.ModuleList``
 walked in order (the JAX package scans stacked parameters instead).
 
+With a remat policy (``CLIPConfig.remat``) each block runs under
+``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` around the
+JAX scan body: the forward keeps the block's input and, through selective
+checkpointing, the hidden products the policy names; the backward recomputes
+the rest.
+
 Parameter names follow the reference state dict (``mixBlocks.{i}
 .layerNorm1``, ``.token_mix_seq.lin1`` ... ``.channel_mix_seq.lin4``), so a
 reference checkpoint's keys load directly.
@@ -14,12 +20,19 @@ reference checkpoint's keys load directly.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
+from typing import Optional
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from clip_mixer_tpu_torch.models.layers import (
     LayerNorm,
     block_parameters,
+    checkpoint_tag,
     init_linear_normal,
     init_linear_torch_default,
     mixer_block_chain,
@@ -65,8 +78,10 @@ class MixerBlock(nn.Module):
             return mixer_block_chain(x, *params)
         x = x + token_mix_branch(x, *params[:6])
         B, T, W = x.shape
-        # ln_mlp takes the f32 masters and casts them to x.dtype itself
-        return ln_mlp(x.reshape(B * T, W), *params[6:]).reshape(B, T, W)
+        # ln_mlp takes the f32 masters and casts them to x.dtype itself. Its
+        # backward needs only its inputs, so a remat recompute, which runs
+        # for what the backward saved, launches nothing.
+        return ln_mlp(x.reshape(B * T, W), *params[6:], compute=not replaying()).reshape(B, T, W)
 
 
 @torch.no_grad()
@@ -91,16 +106,75 @@ def init_mixer_block(block: MixerBlock, text_tower: bool, n_layers: int, generat
         ln.bias.zero_()
 
 
-class MixerTower(nn.Module):
-    """``n_layers`` blocks applied in order to x [B, T, W]."""
+# What each CLIPConfig.remat_policy keeps besides the block's input: the
+# products the chains tag with checkpoint_name (models/layers.py), each
+# kept before its bias (the bias add is recomputed with LN and QuickGELU).
+# With fused_mlp the channel mix is the ln_mlp kernel, which makes no
+# "mlp_hidden" and keeps only its inputs, as the JAX kernel's custom_vjp.
+REMAT_KEEPS = {"none": (), "mlp_hidden": ("mlp_hidden",), "all_hidden": ("mlp_hidden", "token_hidden")}
+# The ops a tagged product reaches the dispatcher as (einsum and matmul
+# lower to these); the views around them are recomputed.
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+_REPLAY = threading.local()
 
-    def __init__(self, width: int, tokens: int, n_layers: int, fused_mlp: bool = False):
+
+def _keep_tagged(names):
+    """Selective-checkpoint policy: keep the products tagged with ``names``."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _PRODUCTS and checkpoint_tag() in names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+@contextlib.contextmanager
+def _replaying(inner):
+    """The backward's recompute of a block: ``inner`` (the selective
+    checkpoint's recompute context), with :func:`replaying` true."""
+    _REPLAY.on = True
+    try:
+        with inner:
+            yield
+    finally:
+        _REPLAY.on = False
+
+
+def replaying() -> bool:
+    """Whether this thread is recomputing a rematerialised block."""
+    return getattr(_REPLAY, "on", False)
+
+
+def _remat_contexts(names):
+    """``checkpoint``'s ``context_fn``: the forward's and the recompute's contexts."""
+    if names:
+        forward, recompute = create_selective_checkpoint_contexts(_keep_tagged(names))
+    else:
+        forward, recompute = contextlib.nullcontext(), contextlib.nullcontext()
+    return forward, _replaying(recompute)
+
+
+class MixerTower(nn.Module):
+    """``n_layers`` blocks applied in order to x [B, T, W]; with
+    ``remat_policy`` (a ``REMAT_KEEPS`` name; None = no remat) each block is
+    rematerialised whenever autograd records."""
+
+    def __init__(self, width: int, tokens: int, n_layers: int, fused_mlp: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.mixBlocks = nn.ModuleList(MixerBlock(width, tokens, fused_mlp) for _ in range(n_layers))
+        self.remat_contexts = (None if remat_policy is None
+                               else functools.partial(_remat_contexts, REMAT_KEEPS[remat_policy]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.remat_contexts is not None and torch.is_grad_enabled()
         for block in self.mixBlocks:
-            x = block(x)
+            if remat:  # the blocks compute nothing random
+                x = checkpoint(block, x, use_reentrant=False, context_fn=self.remat_contexts,
+                               preserve_rng_state=False)
+            else:
+                x = block(x)
         return x
 
 

@@ -12,6 +12,8 @@ items 13 and 14).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -31,9 +33,14 @@ def require_mixer(cfg: CLIPConfig) -> None:
         raise NotImplementedError(
             "transformer towers are not ported yet (ROADMAP.md, Queue 1 item 13)"
         )
-    for field in ("remat", "model_axis", "pipeline_axis"):
+    for field in ("model_axis", "pipeline_axis"):
         if getattr(cfg, field):
-            raise NotImplementedError(f"CLIPConfig.{field} is not ported yet (ROADMAP.md, Slices B and F)")
+            raise NotImplementedError(f"CLIPConfig.{field} is not ported yet (ROADMAP.md, Slice F)")
+
+
+def remat_policy(cfg: CLIPConfig) -> Optional[str]:
+    """The towers' remat policy: ``cfg.remat_policy`` when ``cfg.remat``, else None."""
+    return cfg.remat_policy if cfg.remat else None
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -57,7 +64,7 @@ class VisionEncoder(nn.Module):
         self.conv1 = nn.Conv2d(3, width, kernel_size=p, stride=p, bias=False)
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.ln_pre = LayerNorm(width)
-        self.transformer = MixerTower(width, cfg.vision_tokens, cfg.vision_layers, cfg.fused_mlp)
+        self.transformer = MixerTower(width, cfg.vision_tokens, cfg.vision_layers, cfg.fused_mlp, remat_policy(cfg))
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, cfg.embed_dim))
 

@@ -149,14 +149,14 @@ def _on_card(what, x) -> bool:
     return True
 
 
-def _forward(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
-    """The kernels on CUDA tensors, the plain version on CPU tensors."""
+def _forward(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out) -> torch.Tensor:
+    """Into ``out`` (like x): the kernels on CUDA tensors, the plain version
+    on CPU tensors."""
     if not _on_card("ln_mlp", x):
-        return ln_mlp_plain(x, ln_w, ln_b, w_in, b_in, w_out, b_out)
+        return out.copy_(ln_mlp_plain(x, ln_w, ln_b, w_in, b_in, w_out, b_out))
     _check(x, ln_w, ln_b, w_in, b_in, w_out, b_out)
     R, W = x.shape
     H = w_in.shape[0]
-    out = torch.empty_like(x)
     if R == 0:
         return out
     params = [t.data_ptr() for t in (x, ln_w, ln_b, w_in, b_in, w_out, b_out)]
@@ -231,20 +231,29 @@ def plain_vjp(plain, saved, grad):
 
 class _LnMlp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, *params):
+    def forward(ctx, compute, x, *params):
         ctx.save_for_backward(x, *params)
-        return _forward(x, *(p.to(x.dtype) for p in params))
+        # The output first: with compute=False this is the only op, the
+        # forward's first, as a selective checkpoint's recompute requires
+        # (it replays a prefix of the forward's ops).
+        out = torch.empty_like(x)
+        if compute:
+            _forward(x, *(p.to(x.dtype) for p in params), out)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        return plain_vjp(channel_mlp, ctx.saved_tensors, grad)
+        return None, *plain_vjp(channel_mlp, ctx.saved_tensors, grad)
 
 
-def ln_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out) -> torch.Tensor:
+def ln_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out, *, compute: bool = True) -> torch.Tensor:
     """x: [R, W] -> x + MLP(LN(x)), same shape and dtype; differentiable in
     x and all six parameters, which it casts to ``x.dtype`` for the kernels
-    (gradients reach them in their own dtype)."""
-    return _LnMlp.apply(x, ln_w, ln_b, w_in, b_in, w_out, b_out)
+    (gradients reach them in their own dtype). ``compute=False`` records the
+    call for the backward and launches nothing, leaving the output
+    uninitialised: for a rematerialised block's recompute, which runs only
+    for what the backward saves (here, the inputs)."""
+    return _LnMlp.apply(compute, x, ln_w, ln_b, w_in, b_in, w_out, b_out)
 
 
 ln_mlp.launches = 0

@@ -16,7 +16,8 @@ and keeps its names:
   counterpart of the JAX ``_plain_block_tbd``. The kernel-rounding chain
   :func:`mixer_block_plain` is the forward's plain version only.
 - :func:`mixer_tower_fused` is the drop-in for ``MixerTower.forward`` on x
-  [B, T, D]. No config field reaches it: a caller routes a tower through it.
+  [B, T, D]. No config field reaches it: a caller routes a model's towers
+  through it with :func:`route_towers`. The route takes no remat.
 
 In bf16 a block is three launches on the current stream: the token kernel
 (:func:`token_mix`: z = x + the token MLP, and y2 = LN_ch(z)), then
@@ -295,3 +296,14 @@ def mixer_tower_fused(tower, x: torch.Tensor) -> torch.Tensor:
     for block in tower.mixBlocks:
         h = mixer_block_fused(block, h)
     return h.transpose(0, 1)
+
+
+def route_towers(model, fused: bool) -> None:
+    """Bind (``fused``) or unbind both of a CLIP model's towers' ``forward``
+    to :func:`mixer_tower_fused`: the fused-block route. The model's
+    state-dict keys and config do not change."""
+    for tower in (model.visual.transformer, model.transformer):
+        if fused:
+            tower.forward = functools.partial(mixer_tower_fused, tower)
+        elif "forward" in vars(tower):
+            del tower.forward

@@ -1,0 +1,138 @@
+"""Optimiser: global-norm clip, then AdamW with masked weight decay, then EMA.
+
+Counterpart of ``clip_mixer_tpu/train/optimizer.py``'s optax chain, with its
+numbers:
+
+- the clip is optax's ``clip_by_global_norm``: g * max_norm / ||g|| when
+  ||g|| >= max_norm, else g (``torch.nn.utils.clip_grad_norm_`` adds 1e-6
+  to the norm and is not the same);
+- Adam with bias correction and eps outside the square root, then weight
+  decay decoupled from it, scaled by the scheduled lr, only on parameters
+  with ``ndim >= 2`` (:func:`decay_mask`; the port's blocks are not stacked,
+  so the JAX mask's correction for stacked layers has no counterpart here);
+- with ``TrainConfig.freeze``, the frozen tower gets no moments and no
+  decay; with ``TrainConfig.ema_decay``, the state carries an EMA of the
+  parameters that the train step updates after the step's fixups.
+
+Parameters are the model's ``named_parameters()`` (state-dict keys, f32
+masters); the update is in place with ``torch._foreach_*`` ops, the same
+code on the card and on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from clip_mixer_tpu_torch.config import TrainConfig
+from clip_mixer_tpu_torch.train.schedule import warmup_cosine
+
+# The text tower's parameters sit on the CLIP module itself (the reference
+# state-dict layout); these prefixes name them.
+TEXT_PREFIXES = ("token_embedding.", "transformer.", "ln_final.", "text_projection")
+
+
+def tower_of(name: str) -> Optional[str]:
+    """"visual", "text", or None (``logit_scale``, ``logit_bias``): the JAX
+    tree's top-level key of a port parameter."""
+    if name.startswith("visual."):
+        return "visual"
+    if name.startswith(TEXT_PREFIXES):
+        return "text"
+    return None
+
+
+def _bias_correction(beta: float, count: int) -> float:
+    """1 - beta**count, in f32 as optax computes it."""
+    return float(np.float32(1.0) - np.float32(beta) ** np.float32(count))
+
+
+def decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
+    """True (decay) for matrices, embeddings and convs; False for vectors,
+    scalars, LN parameters, biases, ``logit_scale`` and ``logit_bias``."""
+    return {n: p.ndim >= 2 for n, p in params.items()}
+
+
+@dataclasses.dataclass
+class OptState:
+    """``count`` updates applied; Adam's moments of the trainable
+    parameters; the EMA of every parameter, or None."""
+
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+
+class Optimizer:
+    """The chain of ``make_optimizer`` for parameters keyed by name."""
+
+    def __init__(self, tcfg: TrainConfig, total_steps: int):
+        self.tcfg = tcfg
+        self.schedule = warmup_cosine(
+            tcfg.learning_rate, tcfg.learning_rate * tcfg.min_lr_ratio, tcfg.warmup_steps, total_steps
+        )
+
+    def trainable(self, name: str) -> bool:
+        return self.tcfg.freeze is None or tower_of(name) != self.tcfg.freeze
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+        live = {n: p for n, p in params.items() if self.trainable(n)}
+        ema = None
+        if self.tcfg.ema_decay:
+            ema = {n: p.detach().clone() for n, p in params.items()}
+        return OptState(
+            count=0,
+            mu={n: torch.zeros_like(p, memory_format=torch.preserve_format) for n, p in live.items()},
+            nu={n: torch.zeros_like(p, memory_format=torch.preserve_format) for n, p in live.items()},
+            ema=ema,
+        )
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, Optional[torch.Tensor]],
+               state: OptState) -> torch.Tensor:
+        """One update of the trainable ``params`` in place from ``grads``
+        (None reads as zeros); returns the global gradient norm before the
+        clip, a 0-d tensor on the parameters' device."""
+        t = self.tcfg
+        names = list(state.mu)
+        ps = [params[n] for n in names]
+        gs = [grads[n] if grads.get(n) is not None else torch.zeros_like(params[n]) for n in names]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        clip = torch.where(norm < t.grad_clip_norm, torch.ones_like(norm), t.grad_clip_norm / norm)
+        gs = torch._foreach_mul(gs, clip)
+
+        mus, nus = [state.mu[n] for n in names], [state.nu[n] for n in names]
+        torch._foreach_mul_(mus, t.beta1)
+        torch._foreach_add_(mus, gs, alpha=1.0 - t.beta1)
+        torch._foreach_mul_(nus, t.beta2)
+        torch._foreach_addcmul_(nus, gs, gs, value=1.0 - t.beta2)
+        lr = self.schedule(state.count)  # the count before this update, as optax's
+        state.count += 1
+        den = torch._foreach_div(nus, _bias_correction(t.beta2, state.count))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, t.eps)
+        upd = torch._foreach_div(mus, _bias_correction(t.beta1, state.count))
+        torch._foreach_div_(upd, den)
+        decay = decay_mask(dict(zip(names, ps)))
+        decayed = [i for i, n in enumerate(names) if decay[n]]
+        if decayed and t.weight_decay:
+            torch._foreach_add_([upd[i] for i in decayed], [ps[i] for i in decayed], alpha=t.weight_decay)
+        torch._foreach_add_(ps, upd, alpha=-lr)
+        return norm
+
+    @torch.no_grad()
+    def update_ema(self, params: Mapping[str, torch.Tensor], state: OptState) -> None:
+        """e = decay * e + (1 - decay) * p for every parameter, after the
+        step's fixups (the ``logit_scale`` clamp)."""
+        names = list(state.ema)
+        emas = [state.ema[n] for n in names]
+        torch._foreach_mul_(emas, self.tcfg.ema_decay)
+        torch._foreach_add_(emas, [params[n] for n in names], alpha=1.0 - self.tcfg.ema_decay)
+
+
+def make_optimizer(tcfg: TrainConfig, total_steps: int) -> Optimizer:
+    return Optimizer(tcfg, total_steps)
