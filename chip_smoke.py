@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, training and trainer paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -64,6 +64,30 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    second, peak memory and
    ``train_mfu`` (3x the analytic forward FLOPs of both towers over the
    989 TFLOP/s bf16 peak).
+
+5. The trainer stack, with every launch counter set to 0 before each run:
+   full-width Mixer-B/32 (bf16 compute, f32 masters, ``fused_mlp=True``,
+   remat on, EMA 0.999) trained by ``train/trainer.py`` at B = 256 over a
+   disk-backed ``CacheSource(SyntheticSource(n_batches=4))`` for 3 epochs
+   (12 steps), checkpointing every 4 steps and keeping 2. Run A runs
+   through; run C runs the same in a fresh directory (the determinism
+   witness); run B is crashed by the ``crash_after_steps=6`` drill, which
+   must raise, and a new Trainer resumes it from step 4. B's and C's final
+   parameters, Adam moments and EMA are held against A's: bit for bit when
+   C is A bit for bit, else no further from A than C is. Each run launches
+   ``ln_mlp`` 24 times a step and nothing else; A's 12th loss is below its
+   first, its 12 losses are those of ``make_train_step`` run bare over the
+   same batches, bit for bit (the bare step is also timed, and run at three
+   other learning rates, ``LR_PROBE``, whose losses are reported), and its
+   ``metrics.jsonl`` holds a Loss row a step and a Throughput row a
+   boundary. Then one epoch fed straight from
+   ``SyntheticSource``, the export of run A loaded by ``load_pretrained``
+   into ``InferenceEngine`` (5 captions and 7 images against A's EMA through
+   the same towers: cosine >= 0.999 a row), and ``train_cli`` in a
+   subprocess (B = 64, 2 steps), which must exit 0 and write
+   ``export/model.pt``. Reports images a second (steady, cached and not),
+   ms a step and its data wait, save ms and bytes, restore, export and
+   load ms, and peak memory.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -1169,6 +1193,317 @@ def train_path(dev, counters):
     return summary
 
 
+# ---- phase 5: the trainer ------------------------------------------------------
+
+TRAINER_B = 256
+TRAINER_BATCHES = 4  # the cached epoch: 1024 samples
+TRAINER_EPOCHS = 3  # 12 steps
+TRAINER_EVERY = 4  # checkpoint cadence, and so the Throughput windows
+TRAINER_KEEP = 2
+TRAINER_CRASH = 6  # run B's drill: the crash after step 6 resumes from step 4
+TRAINER_EMA = 0.999
+EXPORT_CAPTIONS, EXPORT_IMAGES = 5, 7
+# The same 12 bare steps at other learning rates and warmups: whether any
+# makes the loss fall 10% in 12 steps (the default's 12th loss read 0.979x
+# its first, with a spike at step 3, where the lr peaks). Reported, not held.
+LR_PROBE = ((1e-4, 2), (2e-4, 6), (2e-3, 2))
+CLI_ARGS = ["--synthetic", "--preset", "mixer-b32", "--global-batch-size", "64", "--steps-per-epoch", "2",
+            "--epochs", "1", "--checkpoint-every", "2"]
+CLI_TIMEOUT_S = 600
+
+
+def trainer_configs():
+    """Full-width Mixer-B/32, bf16 compute, f32 masters, ``fused_mlp`` and
+    remat on (``train.py``'s default), B = 256, EMA 0.999."""
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+
+    cfg = PRESETS[TRAIN_PRESET].replace(fused_mlp=True, remat=True)
+    tcfg = TrainConfig(global_batch_size=TRAINER_B, epochs=TRAINER_EPOCHS, checkpoint_every_steps=TRAINER_EVERY,
+                       keep_checkpoints=TRAINER_KEEP, ema_decay=TRAINER_EMA)
+    return cfg, tcfg
+
+
+def trainer_source(cfg, cache_dir=None):
+    """``CacheSource(SyntheticSource(...))``, disk-backed when ``cache_dir``
+    (the first source fills it; later ones memmap the files)."""
+    from clip_mixer_tpu_torch.data.pipeline import CacheSource, SyntheticSource
+
+    inner = SyntheticSource(batch_size=TRAINER_B, image_size=cfg.image_resolution, n_batches=TRAINER_BATCHES,
+                            context_length=cfg.context_length)
+    return inner if cache_dir is None else CacheSource(inner, cache_dir=cache_dir)
+
+
+def host_state(state):
+    """Every tensor of a TrainState on the host: parameters, moments, EMA."""
+    out = {f"model.{k}": v.detach().cpu() for k, v in state.model.state_dict().items()}
+    for slot in ("mu", "nu", "ema"):
+        out.update({f"{slot}.{k}": v.detach().cpu() for k, v in getattr(state.opt_state, slot).items()})
+    return out
+
+
+def state_gap(got, want):
+    """(max |got - want| over every tensor, the tensor where it is, the
+    number of tensors that differ at all)."""
+    gaps = {k: float((got[k] - want[k]).abs().max()) for k in want}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst, sum(g > 0 for g in gaps.values())
+
+
+def metric_rows(run_dir):
+    with open(f"{run_dir}/runs/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    series = {}
+    for r in rows:
+        series.setdefault(r["name"], {})[r["step"]] = r["value"]
+    return series
+
+
+def data_wait_ms(timings, steps_per_epoch):
+    """A run's wait for each batch: the mean a step, at epoch starts (the
+    prefetch thread starts with each epoch) and at the other steps."""
+    waits = [w * 1e3 for w in timings["data_wait_s"]]
+    starts = waits[::steps_per_epoch]
+    others = [w for i, w in enumerate(waits) if i % steps_per_epoch]
+    return {"per_step": float(np.mean(waits)), "epoch_start": float(np.mean(starts)),
+            "other_steps": float(np.mean(others)) if others else None}
+
+
+def bare_steps(cfg, tcfg, data, dev, steps):
+    """The same training without the trainer: ``make_train_step`` from the
+    same seed over the same batches, moved to the card up front. Returns
+    each step's loss and the mean ms of the steps after the first epoch
+    (CUDA events)."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    batches = [on_device(b, dev) for e in range(tcfg.epochs) for b in data.iter_batches(e)]
+    opt = make_optimizer(tcfg, total_steps=steps)
+    state = init_train_state(CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(tcfg.seed)), opt)
+    step = make_train_step(cfg, tcfg, opt, accum_steps=tcfg.accum_steps)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    for i, b in enumerate(batches):
+        if i == TRAINER_BATCHES:
+            start.record()
+        state, m = step(state, b)
+        metrics.append(m)
+    end.record()
+    end.synchronize()
+    losses = [float(m["loss"]) for m in metrics]
+    return losses, start.elapsed_time(end) / (len(batches) - TRAINER_BATCHES)
+
+
+def trainer_run(cfg, tcfg, data, run_dir, dev, counters, expect_steps, what):
+    """One Trainer from seed 0 to the end of ``tcfg``'s epochs, its launches
+    counted: ``ln_mlp`` 24 a step, nothing else."""
+    from clip_mixer_tpu_torch.train.trainer import Trainer
+
+    blocks = cfg.vision_layers + cfg.text_layers
+    counters.reset()
+    tr = Trainer(cfg, tcfg, data, run_dir, device=dev)
+    start = tr.global_step
+    tr.train()
+    torch.cuda.synchronize()
+    launches = counters.read()
+    steps = tr.global_step - start
+    require(steps == expect_steps, f"{what}: {steps} steps, expected {expect_steps}")
+    require(launches == {"ln_mlp": blocks * steps, "preprocess": 0, "fused_mixer_block": 0},
+            f"{what}: launches {launches} in {steps} steps, expected ln_mlp {blocks} a step")
+    return tr, launches
+
+
+def trainer_path(dev, counters):
+    """Phase 5: the trainer stack on full-width Mixer-B/32 (bf16, f32
+    masters, ``fused_mlp``, remat, EMA) over a disk-backed CacheSource:
+    run A uninterrupted, run C the same in a fresh directory (the
+    determinism witness), run B crashed by the drill after 6 steps and
+    resumed from step 4 by a new Trainer; then one epoch fed straight from
+    SyntheticSource, the export served through InferenceEngine, and the CLI
+    in a subprocess."""
+    import os
+    import shutil
+    import tempfile
+    import dataclasses
+
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.api import load_pretrained
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+    from clip_mixer_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg, tcfg = trainer_configs()
+    steps = TRAINER_BATCHES * TRAINER_EPOCHS
+    blocks = cfg.vision_layers + cfg.text_layers
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    cache = os.path.join(root, "cache")
+    out = {"B": TRAINER_B, "steps": steps, "checkpoint_every": TRAINER_EVERY, "ema_decay": TRAINER_EMA,
+           "route": "fused_mlp, remat (policy none)"}
+    try:
+        t0 = time.perf_counter()
+        data = trainer_source(cfg, cache)
+        require(data.batches_per_epoch == TRAINER_BATCHES, f"cache holds {data.batches_per_epoch} batches")
+        out["cache_fill_s"] = time.perf_counter() - t0
+
+        # run A, uninterrupted
+        free_card()
+        a, launches_a = trainer_run(cfg, tcfg, data, os.path.join(root, "a"), dev, counters, steps, "run A")
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        state_a = host_state(a.state)
+        series = metric_rows(a.run_dir)
+        losses = [series["Loss"][s] for s in range(1, steps + 1)]
+        require(sorted(series["Loss"]) == list(range(1, steps + 1)), f"run A Loss rows at {sorted(series['Loss'])}")
+        boundaries = list(range(TRAINER_EVERY, steps + 1, TRAINER_EVERY))
+        require(sorted(series["Throughput (imgs/s)"]) == boundaries,
+                f"run A Throughput rows at {sorted(series['Throughput (imgs/s)'])}, expected {boundaries}")
+        ips = [series["Throughput (imgs/s)"][s] for s in boundaries]
+        steady = float(np.mean(ips[1:]))
+        timings = a.timings
+        out.update(
+            launches=launches_a, losses=losses, throughput_imgs_per_s=ips,
+            steady_imgs_per_s=steady, step_ms=TRAINER_B / steady * 1e3,
+            data_wait_ms=data_wait_ms(timings, TRAINER_BATCHES),
+            save_ms=[t * 1e3 for t in timings["save_s"]], save_bytes=timings["save_bytes"],
+            export_ms=timings["export_s"] * 1e3, checkpoints_kept=a.checkpointer.all_steps(),
+        )
+        log(f"trainer run A: {steady:.0f} img/s steady ({ips}), losses {losses}, "
+            f"data wait {out['data_wait_ms']} ms, saves {out['save_ms']} ms "
+            f"({out['save_bytes']} bytes), export {out['export_ms']:.0f} ms, peak {out['peak_mem_gb']:.2f} GB")
+        require(out["checkpoints_kept"] == boundaries[-TRAINER_KEEP:], f"run A kept {out['checkpoints_kept']}")
+        require(all(np.isfinite(losses)), f"run A losses {losses}")
+        require(losses[-1] < losses[0], f"run A: loss {losses[0]} -> {losses[-1]}")
+        ema_sd = {k: v.detach().clone() for k, v in a.state.model.state_dict().items()}
+        ema_sd.update({k: v.detach().clone() for k, v in a.state.opt_state.ema.items()})
+        del a
+        shutil.rmtree(os.path.join(root, "a", "checkpoints"))  # A's export stays for the serving check
+        free_card()
+
+        # the bare step over the same batches: the trainer adds nothing to the numbers
+        bare_losses, bare_ms = bare_steps(cfg, tcfg, data, dev, steps)
+        out["bare_step"] = {"ms": bare_ms, "losses_equal": bare_losses == losses,
+                            "trainer_step_ms_over_bare": out["step_ms"] / bare_ms}
+        require(bare_losses == losses, f"run A's losses {losses} are not the bare step's {bare_losses}")
+        free_card()
+        probe = {}
+        for lr, warmup in LR_PROBE:
+            probe_losses, _ = bare_steps(cfg, dataclasses.replace(tcfg, learning_rate=lr, warmup_steps=warmup),
+                                         data, dev, steps)
+            probe[f"lr={lr},warmup={warmup}"] = {"last_over_first": probe_losses[-1] / probe_losses[0],
+                                                 "max": max(probe_losses)}
+            free_card()
+        out["bare_step"]["lr_probe"] = probe
+        log(f"trainer against the bare step: {out['bare_step']}")
+
+        # run C: the same run in a fresh directory, the determinism witness
+        c, _ = trainer_run(cfg, tcfg, trainer_source(cfg, cache), os.path.join(root, "c"), dev, counters, steps,
+                           "run C")
+        gap_c = state_gap(host_state(c.state), state_a)
+        del c
+        shutil.rmtree(os.path.join(root, "c"))
+        free_card()
+
+        # run B: the crash drill after step 6, then a new Trainer resumes from step 4
+        run_b = os.path.join(root, "b")
+        counters.reset()
+        crashing = Trainer(cfg, dataclasses.replace(tcfg, crash_after_steps=TRAINER_CRASH),
+                           trainer_source(cfg, cache), run_b, device=dev)
+        crashed = False
+        try:
+            crashing.train()
+        except RuntimeError as e:
+            crashed = "crash_after_steps" in str(e)
+            if not crashed:
+                raise
+        require(crashed, f"run B: the crash_after_steps={TRAINER_CRASH} drill did not raise")
+        require(counters.read()["ln_mlp"] == blocks * TRAINER_CRASH,
+                f"run B before the crash: launches {counters.read()} in {TRAINER_CRASH} steps")
+        resume_from = crashing.checkpointer.latest_step()
+        del crashing
+        free_card()
+        b, launches_b = trainer_run(cfg, tcfg, trainer_source(cfg, cache), run_b, dev, counters,
+                                    steps - resume_from, "run B resumed")
+        require(resume_from == TRAINER_EVERY, f"run B resumed from step {resume_from}")
+        out["restore_ms"] = b.timings["restore_s"] * 1e3
+        gap_b = state_gap(host_state(b.state), state_a)
+        del b
+        shutil.rmtree(run_b)
+        free_card()
+        out["resume"] = {"resumed_from_step": resume_from, "launches_after_resume": launches_b,
+                         "C_vs_A": {"max_abs": gap_c[0], "at": gap_c[1], "tensors_differing": gap_c[2]},
+                         "B_vs_A": {"max_abs": gap_b[0], "at": gap_b[1], "tensors_differing": gap_b[2]}}
+        log(f"trainer resume: {out['resume']}")
+        if gap_c[0] == 0.0:
+            require(gap_b[0] == 0.0, f"run C is run A bit for bit, but the resumed run B is not: {gap_b}")
+            out["resume"]["tol"] = "bit for bit (C equals A bit for bit)"
+        else:
+            require(gap_b[0] <= gap_c[0], f"run B is {gap_b[0]} from run A, more than the {gap_c[0]} between "
+                                           f"two uninterrupted runs")
+            out["resume"]["tol"] = f"B - A <= max |C - A| = {gap_c[0]}"
+
+        # one epoch fed straight from SyntheticSource, no cache
+        free_card()
+        uncached_tcfg = dataclasses.replace(tcfg, epochs=1)
+        u, _ = trainer_run(cfg, uncached_tcfg, trainer_source(cfg), os.path.join(root, "u"), dev, counters,
+                           TRAINER_BATCHES, "uncached run")
+        u_ips = metric_rows(u.run_dir)["Throughput (imgs/s)"][TRAINER_BATCHES]
+        out["uncached"] = {"imgs_per_s": u_ips, "step_ms": TRAINER_B / u_ips * 1e3,
+                           "data_wait_ms": data_wait_ms(u.timings, TRAINER_BATCHES),
+                           "cached_first_window_imgs_per_s": ips[0]}
+        log(f"trainer uncached: {out['uncached']}")
+        del u
+        shutil.rmtree(os.path.join(root, "u"))
+        free_card()
+
+        # the export through InferenceEngine against run A's EMA through the same towers
+        t0 = time.perf_counter()
+        model, exp_cfg = load_pretrained(os.path.join(root, "a", "export"), device=dev)
+        torch.cuda.synchronize()
+        out["load_pretrained_ms"] = (time.perf_counter() - t0) * 1e3
+        require(exp_cfg == cfg, f"the export's config {exp_cfg}")
+        ref_model = CLIP(cfg, device=dev)
+        ref_model.load_state_dict(ema_sd, strict=True)
+        images = next(iter(trainer_source(cfg).iter_batches(0)))["images"][:EXPORT_IMAGES]
+        captions = TEXTS[:EXPORT_CAPTIONS]
+        served, ref = InferenceEngine(model), InferenceEngine(ref_model)
+        cos = {}
+        encoders = (("text", lambda e: e.encode_text(captions)), ("image", lambda e: e.encode_image_arrays(images)))
+        for what, fn in encoders:
+            got, want = fn(served), fn(ref)
+            check_features(got, len(want), cfg.embed_dim, f"export encode_{what}")
+            # a true cosine: bf16 features are unit vectors only to within their rounding
+            got64, want64 = got.astype(np.float64), want.astype(np.float64)
+            cos[what] = float(((got64 * want64).sum(-1) / np.linalg.norm(got64, axis=-1)
+                               / np.linalg.norm(want64, axis=-1)).min())
+            require(cos[what] >= COSINE_MIN, f"export {what} features: cosine {cos[what]} < {COSINE_MIN}")
+        out["export_min_cosine_vs_ema"] = cos
+        del model, ref_model, served, ref, ema_sd
+        free_card()
+
+        # the command line, in a process of its own
+        run_name = f"chip_smoke_cli_{os.getpid()}"
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "clip_mixer_tpu_torch.train_cli", *CLI_ARGS,
+                               "--run-name", run_name], cwd=repo, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        out["cli_s"] = time.perf_counter() - t0
+        cli_dir = os.path.join(repo, "outputs", run_name)
+        exported = os.path.isfile(os.path.join(cli_dir, "export", "model.pt"))
+        shutil.rmtree(cli_dir, ignore_errors=True)
+        if proc.returncode != 0 or not exported:
+            log(f"train_cli stdout: {proc.stdout[-4000:]}")
+            log(f"train_cli stderr: {proc.stderr[-4000:]}")
+        require(proc.returncode == 0, f"train_cli exited {proc.returncode}")
+        require(exported, "train_cli wrote no export/model.pt")
+        out["cli"] = {"argv": CLI_ARGS, "rc": proc.returncode, "export": True}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["blocks"] = blocks
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1226,8 +1561,11 @@ def main() -> int:
 
     train = train_path(dev, counters)
     emit({"train": train})
-    for row in kernels:  # each kernel's launches in the train phase's 8 steps on its route
+    trainer = trainer_path(dev, counters)
+    emit({"trainer": trainer})
+    for row in kernels:  # each kernel's launches in the train phase's 8 steps on its route, and in the trainer's run A
         row["train_launches"] = {r: train[r]["launches"][row["name"]] for r in ("plain", "fused_mlp", "fused_block")}
+        row["train_launches"]["trainer"] = trainer["launches"][row["name"]]
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

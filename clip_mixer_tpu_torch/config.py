@@ -2,11 +2,10 @@
 
 Field-for-field copies of ``clip_mixer_tpu.config.CLIPConfig``, its
 ``PRESETS`` and ``TrainConfig`` (the port imports nothing of the JAX
-package). Fields that only the JAX package's multi-device and orchestration
-paths read (``model_axis``, ``pipeline_*``, ``fsdp``, the checkpoint and
-preemption cadences, ...) are kept so a configuration moves between the two
-packages unchanged; the port refuses or ignores the ones it does not
-implement yet.
+package). Fields that only the JAX package's multi-device paths read
+(``model_axis``, ``pipeline_*``, ``fsdp``, the preemption sync cadence, ...)
+are kept so a configuration moves between the two packages unchanged; the
+port refuses or ignores the ones it does not implement yet.
 """
 
 from __future__ import annotations
@@ -93,6 +92,12 @@ class CLIPConfig:
     def for_siglip(self) -> "CLIPConfig":
         """SigLIP init: learnable bias -10 and temperature log(10)."""
         return self.replace(logit_bias_init=-10.0, logit_scale_init=math.log(10.0))
+
+
+# The reference's clamp at ln(100) would bind under the sigmoid objective
+# (SigLIP's released models converge near t ~ 118 and the paper applies no
+# clamp), so SigLIP runs use this bound for TrainConfig.logit_scale_max.
+SIGLIP_LOGIT_SCALE_MAX = math.log(1000.0)
 
 
 PRESETS = {
@@ -187,11 +192,14 @@ class TrainConfig:
 
     The port's single-device train step (``parallel/train_step.py``) reads
     the optimiser, schedule, loss, accumulation, clamp, EMA, freeze and
-    augmentation fields. ``fsdp``, ``pipeline_microbatches``, the
-    checkpoint, validation and preemption cadences, the fault drills,
-    ``freeze_serving`` and ``max_inflight_steps`` belong to the trainer and
-    the multi-device steps, which are not ported yet; they are carried and
-    validated as the JAX package validates them.
+    augmentation fields; its trainer (``train/trainer.py``) reads the batch,
+    epoch and step counts, the checkpoint and validation cadences, the
+    retention, the non-finite abort, the fault drills, ``max_inflight_steps``
+    and the seed. Four fields wait: ``fsdp`` and ``pipeline_microbatches``
+    for the multi-device steps and ``preemption_sync_every_steps`` for the
+    multi-process stop (Slice F), ``freeze_serving`` for the frozen serving
+    programs (Slice C). They are carried and validated as the JAX package
+    validates them; the trainer refuses ``fsdp`` and ``freeze_serving``.
     """
 
     global_batch_size: int = 32768

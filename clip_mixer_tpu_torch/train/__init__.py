@@ -1,1 +1,1 @@
-"""Training pieces of the port: the LR schedule and the optimiser."""
+"""Training pieces of the port: the LR schedule, the optimiser, metrics, checkpoints and the trainer."""

@@ -1,0 +1,206 @@
+"""Training command line of the port: ``python -m clip_mixer_tpu_torch.train_cli``.
+
+Counterpart of the JAX package's ``train.py`` on one device, with its flags'
+names and defaults (remat on unless ``--no-remat``), ``--device`` in place of
+``--platform`` (the card unless another is named). It builds the model from
+a preset or from ``--init-from`` (a port export directory), the synthetic
+source, and the :class:`~clip_mixer_tpu_torch.train.trainer.Trainer`, which
+writes to ``outputs/<run-name>`` and exports to ``outputs/<run-name>/export``.
+
+Flags whose machinery is not ported yet exit with a message naming the
+ROADMAP item. A non-finite loss exits with code 13, as the JAX launcher's
+``EXIT_NONFINITE``: under bitwise resume that failure repeats, so a
+supervisor must not restart it.
+
+Example::
+
+    python -m clip_mixer_tpu_torch.train_cli --synthetic --preset mixer-b32 \\
+        --global-batch-size 256 --steps-per-epoch 50 --epochs 2 --run-name run1
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import traceback
+
+import torch
+
+from clip_mixer_tpu_torch.api import load_config
+from clip_mixer_tpu_torch.config import PRESETS, SIGLIP_LOGIT_SCALE_MAX, TrainConfig
+from clip_mixer_tpu_torch.data.pipeline import SyntheticSource
+from clip_mixer_tpu_torch.models.clip import CLIP
+from clip_mixer_tpu_torch.ops.augment import source_size
+from clip_mixer_tpu_torch.train.trainer import Trainer
+
+EXIT_NONFINITE = 13  # clip_mixer_tpu/launch.py:169
+
+# flag -> the ROADMAP.md item that ports its machinery
+NOT_PORTED = {
+    "--data": "Queue 1 item 10b (the tar, file-list and mixture sources)",
+    "--val-data": "Queue 1 item 10b and Slice E (the retrieval validator)",
+    "--fsdp": "Slice F (item 16, FSDP2)",
+    "--tensor-parallel": "Slice F (item 16, DTensor)",
+    "--pipeline-stages": "Slice F (item 16, GPipe)",
+    "--freeze-serving": "Slice C (item 12, frozen programs)",
+    "--coordinator": "Slice F (item 16, multi-process launch)",
+    "--num-processes": "Slice F (item 16, multi-process launch)",
+    "--process-id": "Slice F (item 16, multi-process launch)",
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--preset", default="mixer-b32", choices=sorted(PRESETS.keys()))
+    p.add_argument("--data", action="append", default=None, help="not ported yet")
+    p.add_argument("--val-data", default=None, help="not ported yet")
+    p.add_argument("--val-samples", type=int, default=2048)
+    p.add_argument("--caption-from", default="txt", choices=("txt", "dirname", "stem"))
+    p.add_argument("--synthetic", action="store_true", help="synthetic data (smoke runs)")
+    p.add_argument("--run-name", default="run", help="output directory name under outputs/")
+    p.add_argument("--epochs", type=int, default=32)
+    p.add_argument("--global-batch-size", type=int, default=32768)
+    p.add_argument("--learning-rate", type=float, default=5e-4)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=400)
+    p.add_argument("--validate-every", type=int, default=None,
+                   help="validation cadence in steps (default: --checkpoint-every)")
+    p.add_argument("--keep-checkpoints", type=int, default=3, help="retention window (last N checkpoints)")
+    p.add_argument("--grad-through-gather", action="store_true")
+    p.add_argument("--chunk-size", type=int, default=None, help="chunked logits")
+    p.add_argument("--accum-steps", type=int, default=1, help="exact (GradCache) accumulation microbatches")
+    p.add_argument("--max-inflight-steps", type=int, default=2,
+                   help="dispatch depth: the host waits on the step this many back")
+    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+    p.add_argument("--tensor-parallel", type=int, default=1, help="not ported yet beyond 1")
+    p.add_argument("--pipeline-stages", type=int, default=1, help="not ported yet beyond 1")
+    p.add_argument("--pipeline-microbatches", type=int, default=8)
+    p.add_argument("--cache-data", nargs="?", const=True, default=None, metavar="DIR",
+                   help="serve every epoch from a host-RAM cache (needs --data)")
+    p.add_argument("--shuffle-buffer", type=int, default=10000)
+    p.add_argument("--on-decode-error", default="raise", choices=["raise", "substitute"])
+    p.add_argument("--freeze-serving", action="store_true", help="not ported yet")
+    p.add_argument("--loss", default="info_nce", choices=["info_nce", "siglip"])
+    p.add_argument("--init-from", default=None, metavar="PATH",
+                   help="initialise from a port export directory (config.json + model.pt); "
+                        "a checkpoint of this run still wins")
+    p.add_argument("--freeze-tower", default=None, choices=["visual", "text"])
+    p.add_argument("--augment", action="store_true", help="in-step random crop and flip")
+    p.add_argument("--ema-decay", type=float, default=None)
+    p.add_argument("--seed", type=int, default=0, help="init and data seed (TrainConfig.seed)")
+    p.add_argument("--no-validators", action="store_true")
+    p.add_argument("--no-remat", action="store_true", help="disable gradient rematerialisation")
+    p.add_argument("--remat-policy", default="none", choices=["none", "mlp_hidden", "all_hidden"])
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help="trace this many steady steps to outputs/<run>/profile")
+    p.add_argument("--crash-after-steps", type=int, default=None, help="fault injection: crash after N steps")
+    p.add_argument("--hang-after-steps", type=int, default=None, help="fault injection: hang after N steps")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
+    p.add_argument("--coordinator", default=None, help="not ported yet")
+    p.add_argument("--num-processes", type=int, default=None, help="not ported yet")
+    p.add_argument("--process-id", type=int, default=None, help="not ported yet")
+    return p.parse_args(argv)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """SystemExit for the first flag set whose machinery is not ported."""
+    given = {
+        "--data": args.data is not None,
+        "--val-data": args.val_data is not None,
+        "--fsdp": args.fsdp,
+        "--tensor-parallel": args.tensor_parallel > 1,
+        "--pipeline-stages": args.pipeline_stages > 1,
+        "--freeze-serving": args.freeze_serving,
+        "--coordinator": args.coordinator is not None,
+        "--num-processes": args.num_processes is not None,
+        "--process-id": args.process_id is not None,
+    }
+    for flag, on in given.items():
+        if on:
+            raise SystemExit(f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, {NOT_PORTED[flag]}")
+    if args.cache_data is not None:
+        raise SystemExit("--cache-data needs --data (synthetic data is already RAM-speed)")
+
+
+def init_model(path: str, cfg, seed: int, device):
+    """The fine-tuning entry: the architecture of the export at ``path``,
+    this run's runtime knobs, the exported weights. A SigLIP run from an
+    InfoNCE export keeps its fresh ``logit_bias``."""
+    if not os.path.isfile(os.path.join(path, "config.json")):
+        raise SystemExit(f"--init-from {path}: not a port export directory (config.json + model.pt); "
+                         "registry names and torch checkpoints wait for ROADMAP.md Slice E")
+    cfg = load_config(path).replace(
+        remat=cfg.remat, remat_policy=cfg.remat_policy, fused_mlp=cfg.fused_mlp,
+        compute_dtype=cfg.compute_dtype, logit_bias_init=cfg.logit_bias_init,
+    )
+    model = CLIP(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    sd = torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    if unexpected or set(missing) - {"logit_bias"}:
+        raise SystemExit(f"--init-from {path}: weights do not fit the exported config "
+                         f"(missing {missing[:5]}, unexpected {unexpected[:5]})")
+    return model, cfg
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    refuse_unported(args)
+    cfg = PRESETS[args.preset].replace(remat=not args.no_remat, remat_policy=args.remat_policy)
+    if args.loss == "siglip":
+        cfg = cfg.for_siglip()
+    model = None
+    if args.init_from:
+        model, cfg = init_model(args.init_from, cfg, args.seed, args.device)
+    tcfg = TrainConfig(
+        seed=args.seed,
+        logit_scale_max=SIGLIP_LOGIT_SCALE_MAX if args.loss == "siglip" else TrainConfig.logit_scale_max,
+        global_batch_size=args.global_batch_size,
+        epochs=args.epochs,
+        steps_per_epoch=args.steps_per_epoch,
+        learning_rate=args.learning_rate,
+        checkpoint_every_steps=args.checkpoint_every,
+        validate_every_steps=args.validate_every,
+        keep_checkpoints=args.keep_checkpoints,
+        accum_steps=args.accum_steps,
+        max_inflight_steps=args.max_inflight_steps,
+        pipeline_microbatches=args.pipeline_microbatches,
+        crash_after_steps=args.crash_after_steps,
+        hang_after_steps=args.hang_after_steps,
+        loss=args.loss,
+        ema_decay=args.ema_decay,
+        freeze=args.freeze_tower,
+        augment=args.augment,
+    )
+    # with augmentation the source is larger and the step crops it back
+    source_res = source_size(cfg.image_resolution) if args.augment else cfg.image_resolution
+    data = SyntheticSource(
+        batch_size=args.global_batch_size,
+        image_size=source_res,
+        n_batches=args.steps_per_epoch or 100,
+        context_length=cfg.context_length,
+    )
+    if not args.no_validators:
+        print("train_cli: the validators are not ported yet (ROADMAP.md, Slice E); training runs without "
+              "them (--no-validators silences this)", flush=True)
+    trainer = Trainer(
+        cfg, tcfg, data,
+        run_dir=os.path.join("outputs", args.run_name),
+        device=args.device,
+        grad_through_gather=args.grad_through_gather,
+        chunk_size=args.chunk_size,
+        model=model,
+        verbose=args.verbose,
+        profile_steps=args.profile_steps,
+    )
+    try:
+        trainer.train()
+    except FloatingPointError:
+        # the trainer's non-finite-loss abort, the last good checkpoint kept
+        traceback.print_exc()
+        sys.exit(EXIT_NONFINITE)
+
+
+if __name__ == "__main__":
+    main()

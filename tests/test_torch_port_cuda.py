@@ -316,3 +316,20 @@ def test_mixer_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fused_mixer_block_tbd(narrow, xn)
     with pytest.raises(ValueError, match="strides"):
         fused_mixer_block_tbd(block.bfloat16(), x[:, ::2])
+
+
+def test_device_prefetch_copies_each_batch_to_the_card(cuda):
+    """The trainer's device prefetch: pinned in the producer (``pinned``),
+    copied on a side stream, and safe to use on the consumer's stream at
+    once, the same bytes as the host batch."""
+    from clip_mixer_tpu_torch.data.pipeline import SyntheticSource, device_prefetch, pinned, prefetch
+
+    src = SyntheticSource(batch_size=16, image_size=64, n_batches=5, context_length=77)
+    host = list(src.iter_batches(0))
+    got = list(device_prefetch(prefetch(pinned(src.iter_batches(0))), cuda))
+    assert len(got) == len(host)
+    for h, d in zip(host, got):
+        for k in h:
+            assert d[k].is_cuda and d[k].dtype == torch.as_tensor(h[k]).dtype
+            # consumed on the current stream with no synchronisation of ours
+            np.testing.assert_array_equal(d[k].clone().cpu().numpy(), h[k])

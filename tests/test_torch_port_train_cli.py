@@ -1,0 +1,122 @@
+"""The port's training command line (``python -m clip_mixer_tpu_torch.train_cli``) on the CPU.
+
+``main([...])`` with ``--device cpu`` trains two steps and writes the
+export; every flag whose machinery is not ported exits with a message
+naming its ROADMAP item; a non-finite loss exits with code 13 (the JAX
+launcher's ``EXIT_NONFINITE``); ``--init-from`` starts from a port export.
+"""
+
+import json
+import os
+import sys
+
+import pytest
+import torch
+
+from clip_mixer_tpu.launch import EXIT_NONFINITE as JAX_EXIT_NONFINITE
+
+from clip_mixer_tpu_torch import train_cli
+from clip_mixer_tpu_torch.config import PRESETS
+
+RUN = ["--synthetic", "--preset", "mixer-debug", "--global-batch-size", "4", "--steps-per-epoch", "2",
+       "--epochs", "1", "--checkpoint-every", "2", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _in_tmp(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the CLI writes outputs/<run-name> under the working directory
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # as on the card's host
+
+
+def _rows(run):
+    with open(os.path.join("outputs", run, "runs", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_main_trains_two_steps_and_writes_the_export(capsys):
+    train_cli.main(RUN + ["--run-name", "r"])
+    out = capsys.readouterr().out
+    assert out.count("validators are not ported yet") == 1
+    export = os.path.join("outputs", "r", "export")
+    assert os.path.isfile(os.path.join(export, "model.pt"))
+    with open(os.path.join(export, "config.json")) as f:
+        cfg = json.load(f)
+    assert cfg["remat"] is True and cfg["vision_width"] == PRESETS["mixer-debug"].vision_width  # remat by default
+    assert sorted(os.listdir(os.path.join("outputs", "r", "checkpoints"))) == ["2"]
+    assert sum(r["name"] == "Loss" for r in _rows("r")) == 2
+
+    train_cli.main(RUN + ["--run-name", "q", "--no-remat", "--no-validators", "--loss", "siglip"])
+    assert "validators" not in capsys.readouterr().out
+    with open(os.path.join("outputs", "q", "export", "config.json")) as f:
+        cfg = json.load(f)
+    assert cfg["remat"] is False and cfg["logit_bias_init"] == -10.0
+    assert sum(r["name"] == "Logit bias" for r in _rows("q")) == 2
+
+
+UNPORTED = {
+    "--data": ["--data", "shards/*.tar"],
+    "--val-data": ["--val-data", "val/*.tar"],
+    "--fsdp": ["--fsdp"],
+    "--tensor-parallel": ["--tensor-parallel", "2"],
+    "--pipeline-stages": ["--pipeline-stages", "2"],
+    "--freeze-serving": ["--freeze-serving"],
+    "--coordinator": ["--coordinator", "localhost:1234"],
+    "--num-processes": ["--num-processes", "2"],
+    "--process-id": ["--process-id", "0"],
+}
+
+
+@pytest.mark.parametrize("flag", sorted(UNPORTED))
+def test_each_unported_flag_exits_with_its_roadmap_item(flag):
+    with pytest.raises(SystemExit, match=f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, "):
+        train_cli.main(RUN + UNPORTED[flag])
+    assert not os.path.exists("outputs")
+
+
+def test_cache_data_needs_data():
+    with pytest.raises(SystemExit, match="--cache-data needs --data"):
+        train_cli.main(RUN + ["--cache-data"])
+
+
+def test_nonfinite_loss_exits_13(monkeypatch):
+    assert train_cli.EXIT_NONFINITE == JAX_EXIT_NONFINITE == 13
+
+    class Diverging(train_cli.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            real = self.step_fn
+
+            def step(state, batch):
+                state, metrics = real(state, batch)
+                return state, dict(metrics, loss=torch.tensor(float("inf")))
+
+            self.step_fn = step
+
+    monkeypatch.setattr(train_cli, "Trainer", Diverging)
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(RUN + ["--run-name", "nan"])
+    assert e.value.code == 13
+    assert not os.path.exists(os.path.join("outputs", "nan", "export"))
+
+
+def test_init_from_a_port_export():
+    train_cli.main(RUN + ["--run-name", "base", "--no-validators"])
+    export = os.path.join("outputs", "base", "export")
+    want = torch.load(os.path.join(export, "model.pt"), weights_only=True)
+    cfg = PRESETS["mixer-debug"].for_siglip().replace(remat=False)
+    model, got_cfg = train_cli.init_model(export, cfg, seed=3, device="cpu")
+    assert got_cfg.remat is False and got_cfg.logit_bias_init == -10.0  # this run's knobs
+    for k, v in want.items():
+        assert torch.equal(model.state_dict()[k], v), k
+    assert float(model.logit_bias.detach()) == -10.0  # an InfoNCE export gains a fresh bias
+    train_cli.main(RUN + ["--run-name", "tuned", "--no-validators", "--init-from", export])
+    assert os.path.isfile(os.path.join("outputs", "tuned", "export", "model.pt"))
+    with pytest.raises(SystemExit, match="not a port export directory"):
+        train_cli.main(RUN + ["--run-name", "x", "--init-from", "mixer-b32"])
+
+
+def test_the_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [a for a in RUN if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(args + ["--run-name", "nocard", "--no-validators"])
