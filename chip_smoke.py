@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and trainer paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, training, trainer and int8 serving paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -88,6 +88,34 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``export/model.pt``. Reports images a second (steady, cached and not),
    ms a step and its data wait, save ms and bytes, restore, export and
    load ms, and peak memory.
+
+6. int8 (W8A8) serving, with every launch counter set to 0 first:
+   full-width Mixer-B/32 (bf16, weights from seed 0) behind an
+   ``InferenceEngine`` that ``enable_int8`` calibrates on 128
+   ``synthetic_images`` at 224x224 and 128 fixed captions (the vision
+   ch_hidden site holds 19.7 M values, above ``torch.quantile``'s 2^24) and
+   saves as an artifact, which a second engine loads: the same features bit
+   for bit. The int8 text tower in f32 compute on the card must give its
+   CPU computation (same weights and scales) block by block at per-row
+   cosine >= 0.9999 (a block with a bias zeroed must not), and its
+   features at >= 0.999. Then per-row cosine of the int8 features against bf16; the
+   three noise-floor gates, each on 4096 inputs: model-sized images and the
+   planar front end from 256x256, which must pass, and the text tower on
+   4096 fixed captions, whose verdict decides whether text is served int8
+   (a tower is served int8 only if its gate passed, as the JAX package's
+   release refuses int8 on a failed gate; the JAX package's own text gate
+   fails at this width too, ``scripts/torch_int8_text_gate_witness.py``);
+   an int8 engine on 256x256 sources
+   (the planar front end) serving
+   ``/encode_text``, ``/encode_image`` (``.npy`` images), ``/classify``,
+   ``/index`` and ``/retrieve`` over HTTP; a 262,144 x 512 f32 bank on the
+   card, whose top-5 ids must equal the host bank's. None of the three
+   kernels may launch. Then the timing (CUDA events): each int8 tower at
+   buckets 8 and 128 beside the fused-block, ``fused_mlp`` and plain bf16
+   towers, in turns; ``torch._int_mm`` alone at the channel-mix shapes
+   (the modules' [out, in] layout) beside a bf16 ``torch.matmul``, in TOPS
+   against the 1,979 int8 peak; the planar front end at B = 128 beside
+   ``preprocess``.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -1504,6 +1532,427 @@ def trainer_path(dev, counters):
     return out
 
 
+# ---- phase 6: int8 serving ----------------------------------------------------
+
+INT8_CALIB_N = 128  # calibration images and captions
+INT8_GATE_N = 4096  # each gate's set: the size at which the JAX package's flip ratios are resolved
+INT8_GATE_BATCH = 256
+INT8_BANK_ROWS = 262144  # x 512 f32: 512 MB on the card
+INT8_RETRIEVE_TOP = 5
+INT8_TOWER_BUCKETS = (8, 128)
+INT8_INT_MM_SHAPES = {  # (M, K, N) of the channel mixes at bucket 128
+    "vision_in": (128 * 50, 768, 3072), "vision_out": (128 * 50, 3072, 768),
+    "text_in": (128 * 77, 512, 2048), "text_out": (128 * 77, 2048, 512),
+}
+INT8_TEXT_CPU_N = 64  # captions through the int8 text tower on the card and on the CPU
+BLOCK_COSINE = 0.9999  # per row, each int8 text block on the card against the CPU (both f32 compute)
+FEATURES_COSINE = 0.999  # per row, the int8 text features on the card against the CPU, end to end
+INT8_PEAK_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+GATE_CLASSES = [
+    "cat", "dog", "horse", "cow", "sheep", "bird", "eagle", "owl", "fish", "shark", "whale", "frog", "snake",
+    "turtle", "spider", "butterfly", "bee", "car", "truck", "bus", "bicycle", "motorcycle", "airplane", "boat",
+    "train", "tractor", "house", "castle", "bridge", "tower", "church", "barn", "tree", "flower", "mushroom",
+    "mountain", "lake", "beach", "forest", "desert", "chair", "table", "lamp", "clock", "phone", "laptop",
+    "guitar", "piano", "violin", "drum", "cup", "bottle", "plate", "bowl of soup", "pizza", "banana", "apple",
+    "orange", "cake", "sandwich", "shoe", "hat", "umbrella", "backpack",
+]  # 64 classes
+GATE_TEMPLATES = ["a photo of a {}.", "a blurry photo of a {}.", "a close-up photo of a {}.", "a drawing of a {}."]
+GATE_ADJECTIVES = ("small", "big", "red", "old", "young", "dark", "bright", "wet", "wooden", "plastic", "metal",
+                   "striped", "spotted", "broken", "new", "tiny")
+GATE_CAPTION_TEMPLATES = ("a photo of a {} {}.", "an image of a {} {}.", "a close-up of a {} {}.",
+                          "a {} {} in the picture.")
+CAPTIONS = [
+    f"a {adj} photo of a {noun}"
+    for adj in ("blurry", "bright", "dark", "close-up", "black and white", "cropped", "old", "good")
+    for noun in GATE_CLASSES[:16]
+]  # 128 fixed captions
+
+
+def gate_captions():
+    """The text gate's set: 4096 fixed captions, 16 adjectives x 4 templates
+    x the 64 gate classes."""
+    return [t.format(a, c) for a in GATE_ADJECTIVES for t in GATE_CAPTION_TEMPLATES for c in GATE_CLASSES]
+
+
+def npy_b64(images):
+    import base64
+    import io
+
+    out = []
+    for img in images:
+        buf = io.BytesIO()
+        np.save(buf, img)
+        out.append(base64.b64encode(buf.getvalue()).decode())
+    return out
+
+
+def post(base, path, payload):
+    req = urllib.request.Request(f"{base}{path}", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def int8_http(engine, images, texts, paths):
+    """/encode_text, /encode_image, /classify, /index and /retrieve against
+    the engine's own calls; the images go as ``.npy`` (the card's host has
+    no PIL); /healthz must report ``paths``. Returns the /healthz and
+    /metrics payloads."""
+    from clip_mixer_tpu_torch.serving import serve
+
+    server = serve(engine, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        blobs = npy_b64(images)
+        feats = np.asarray(post(base, "/encode_text", {"texts": texts})["features"], np.float32)
+        np.testing.assert_allclose(feats, engine.encode_text(texts), atol=1e-6)
+        feats = np.asarray(post(base, "/encode_image", {"images_b64": blobs})["features"], np.float32)
+        np.testing.assert_allclose(feats, engine.encode_image_arrays(images), atol=1e-6)
+        got = post(base, "/classify", {"images_b64": blobs, "top_k": 3})["results"]
+        require(got == engine.classify(images, top_k=3), "HTTP /classify differs from classify()")
+        ids = [f"img{i}" for i in range(len(images))]
+        require(post(base, "/index", {"images_b64": blobs, "ids": ids}) == {"indexed": len(ids)}, "HTTP /index")
+        got = post(base, "/retrieve", {"texts": texts, "top_k": 3})["results"]
+        require(got == engine.retrieve(texts, top_k=3), "HTTP /retrieve differs from retrieve()")
+        require(all(r["id"] in ids for row in got for r in row), got)
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())["endpoints"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    require(health["paths"] == paths and health["index_size"] == len(images), health)
+    for ep in ("/encode_text", "/encode_image", "/classify", "/index", "/retrieve"):
+        require(metrics[ep]["count"] == 1 and metrics[ep]["errors"] == 0, f"{ep}: {metrics.get(ep)}")
+    return health, metrics
+
+
+def int8_device_bank(engine, dev):
+    """A 262,144 x 512 f32 bank through ``load_index`` (automatically on the
+    card at this size): ``retrieve`` against the host bank's top-5 ids."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    feats = torch.randn(INT8_BANK_ROWS, engine.cfg.embed_dim, generator=g, device=dev).cpu().numpy()
+    ids = [str(i) for i in range(INT8_BANK_ROWS)]
+    queries = TEXTS[:40]
+    out = {"rows": INT8_BANK_ROWS, "bytes": feats.nbytes, "queries": len(queries)}
+    engine.load_index(feats, ids, device=False)
+    t0 = time.perf_counter()
+    host = engine.retrieve(queries, top_k=INT8_RETRIEVE_TOP)
+    out["host_retrieve_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    engine.load_index(feats, ids)
+    torch.cuda.synchronize()
+    out["load_ms"] = (time.perf_counter() - t0) * 1e3
+    bank = engine._index[0]
+    require(isinstance(bank, torch.Tensor) and bank.is_cuda, "a 262,144-row bank did not land on the card")
+    engine.warmup()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dev_rows = engine.retrieve(queries, top_k=INT8_RETRIEVE_TOP)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["device_retrieve_ms"] = times
+    require([[r["id"] for r in row] for row in dev_rows] == [[r["id"] for r in row] for row in host],
+            "device-bank top-5 ids differ from the host bank's")
+    gap = max(abs(a["score"] - b["score"]) for ra, rb in zip(dev_rows, host) for a, b in zip(ra, rb))
+    out["max_score_gap"] = gap
+    q = np.random.default_rng(7).normal(size=(128, engine.cfg.embed_dim)).astype(np.float32)
+    out["sims_ms_q128"] = cuda_ms(lambda: engine._device_sims(q, bank), iters=5)
+    out["sims_bound_ms"] = bank.numel() * 4 / HBM_BYTES_PER_S * 1e3  # the bank read once
+    log(f"device bank: {out}")
+    return out
+
+
+def int8_text_card_vs_cpu(model, a_scales, n=INT8_TEXT_CPU_N):
+    """The int8 text tower at full width on the card against its CPU
+    computation: the same weights and activation scales in f32 compute, on
+    ``n`` gate captions. Each block is fed the CPU's input to it and must
+    give the CPU's output at per-row cosine >= ``BLOCK_COSINE``; the
+    features, end to end, at ``FEATURES_COSINE``. Neither bound is f32's: a
+    static scale turns an ulp of difference at a rounding boundary into a
+    whole quantisation step, which moves a row of the first blocks (whose
+    residual stream is still the small embedding) by a few 1e-5 in cosine,
+    and the steps compound over the blocks. Block 0 with its ``b_in``
+    zeroed must fail the block bound."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.evals.quant_gate import float32_twin
+    from clip_mixer_tpu_torch.models.clip import l2_normalize
+    from clip_mixer_tpu_torch.ops.quant import encode_text_q, quantize_text_tower
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    def row_cos(a, b):
+        a, b = a.double().flatten(0, -2), b.double().flatten(0, -2)
+        return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+    texts = torch.from_numpy(tokenize(gate_captions()[:n], model.cfg.context_length, truncate=True))
+    cpu = CLIP(model.cfg.replace(compute_dtype="float32"), device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        q_cpu = quantize_text_tower(cpu.eval(), a_scales)
+        q_card = quantize_text_tower(float32_twin(model), a_scales)
+
+        def card_block(i, x):
+            return q_card.blocks[i](x.to(model.device), q_card.a_ch_in[i], q_card.a_ch_hidden[i]).cpu()
+
+        x0 = x = q_cpu.token_embedding.weight[texts.long()]
+        blocks, outs = [], []
+        for i, block in enumerate(q_cpu.blocks):
+            outs.append(block(x, q_cpu.a_ch_in[i], q_cpu.a_ch_hidden[i]))
+            blocks.append(float(row_cos(card_block(i, x), outs[-1]).min()))
+            x = outs[-1]
+        want = l2_normalize(encode_text_q(q_cpu, texts))
+        got = l2_normalize(encode_text_q(q_card, texts.to(model.device))).cpu()
+        b0 = q_card.blocks[0]
+        b_in = b0.b_in
+        b0.b_in = torch.nn.Parameter(torch.zeros_like(b_in), requires_grad=False)
+        fault = float(row_cos(card_block(0, x0), outs[0]).min())
+        b0.b_in = b_in
+    feats = row_cos(got, want)
+    out = {"n": n, "block_min_cosine": blocks, "features_min_cosine": float(feats.min()),
+           "features_mean_cosine": float(feats.mean()), "block0_without_b_in_min_cosine": fault,
+           "s": time.perf_counter() - t0}
+    log(f"int8 text tower (f32 compute), card against CPU: {out}")
+    require(min(blocks) >= BLOCK_COSINE and feats.min() >= FEATURES_COSINE,
+            f"the int8 text tower on the card differs from its CPU computation: {out}")
+    require(fault < BLOCK_COSINE, f"block 0 without its b_in passed the block bound: {out}")
+    return out
+
+
+def time_int8_towers(model, qvis, qtext, dev):
+    """Each tower at buckets 8 and 128, bf16: the int8 blocks beside the
+    fused-block, ``fused_mlp`` and plain bf16 towers, in turns A B C D D C B
+    A, each the mean of 10 back-to-back calls."""
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import mixer_tower_fused
+
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(9)
+    rows = {}
+    for name, tower, qtower, T, D in (("vision", model.visual.transformer, qvis, cfg.vision_tokens, cfg.vision_width),
+                                      ("text", model.transformer, qtext, cfg.context_length, cfg.text_width)):
+        for B in INT8_TOWER_BUCKETS:
+            x = torch.randn(B, T, D, generator=g).to(device=dev, dtype=torch.bfloat16)
+            ways = {
+                "int8_ms": lambda: qtower.run_blocks(x),
+                "fused_block_ms": lambda: mixer_tower_fused(tower, x),
+                "fused_mlp_ms": lambda: tower(x),  # with every block's fused_mlp set
+                "plain_ms": lambda: tower(x),
+            }
+            times = {k: [] for k in ways}
+            with torch.inference_mode():
+                for k in [*ways, *reversed(ways)]:
+                    for block in tower.mixBlocks:
+                        block.fused_mlp = k == "fused_mlp_ms"
+                    times[k].append(cuda_ms(ways[k], iters=10))
+                for block in tower.mixBlocks:
+                    block.fused_mlp = False
+            row = {k: sum(v) / len(v) for k, v in times.items()}
+            row["each_run_ms"] = times
+            rows[f"{name}_b{B}"] = row
+            log(f"int8 tower {name} at bucket {B}: {row}")
+    return rows
+
+
+def time_int_mm(dev):
+    """``torch._int_mm`` alone at the channel-mix shapes, with the weight as
+    the transposed view of [out, in] (the quant modules' layout; the
+    [in, out] layout is timed by ``scripts/torch_int8_gate_anatomy.py``),
+    beside a bf16 ``torch.matmul`` of the same shape, in turns."""
+    g = torch.Generator().manual_seed(10)
+    rows = {}
+    for label, (M, K, N) in INT8_INT_MM_SHAPES.items():
+        a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8).to(dev)
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        ways = {
+            "out_in_view_ms": lambda: torch._int_mm(a, w.t()),
+            "bf16_matmul_ms": lambda: torch.matmul(ab, wb.t()),
+        }
+        times = {k: [] for k in ways}
+        for k in [*ways, *reversed(ways)]:
+            times[k].append(cuda_ms(ways[k], iters=20))
+        row = {k: sum(v) / len(v) for k, v in times.items()}
+        ops = 2.0 * M * K * N
+        for k in ways:
+            row[k.replace("_ms", "_tops")] = ops / (row[k] * 1e-3) / 1e12
+        row["int8_bound_ms"] = ops / INT8_PEAK_OPS_PER_S * 1e3
+        row["shape"] = [M, K, N]
+        rows[label] = row
+        log(f"_int_mm {label} {M}x{K}x{N}: {row}")
+    return rows
+
+
+def time_int8_front_end(model, qvis, dev):
+    """B = 128 from 256x256 uint8: the planar front end against the
+    ``preprocess`` kernel and the ``"torch"`` preprocess, alone and with
+    the tower behind each (int8 planar; bf16 fused-block and plain)."""
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess
+    from clip_mixer_tpu_torch.ops.quant import encode_image_q_patches, make_planar_front_end
+
+    cfg = model.cfg
+    x = torch.from_numpy(np.random.default_rng(11).integers(0, 256, (128, 256, 256, 3), dtype=np.uint8)).to(dev)
+    planar = make_planar_front_end(cfg, (256, 256), qvis.a_patch)
+    kernel = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="kernel")
+    plain = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="torch")
+    ways = {
+        "planar_ms": lambda: planar(x),
+        "preprocess_kernel_ms": lambda: kernel(x),
+        "preprocess_torch_ms": lambda: plain(x),
+        "int8_planar_encode_ms": lambda: encode_image_q_patches(qvis, planar(x)),
+        "bf16_fused_block_encode_ms": lambda: model.encode_image(kernel(x)),
+        "bf16_plain_encode_ms": lambda: model.encode_image(plain(x)),
+    }
+    times = {k: [] for k in ways}
+    with torch.inference_mode():
+        for k in [*ways, *reversed(ways)]:
+            route_towers(model, k == "bf16_fused_block_encode_ms")
+            times[k].append(cuda_ms(ways[k], iters=10))
+    route_towers(model, False)
+    row = {k: sum(v) / len(v) for k, v in times.items()}
+    row["each_run_ms"] = times
+    log(f"int8 front end at B = 128: {row}")
+    return row
+
+
+def int8_path(dev, counters):
+    """Phase 6: int8 (W8A8) serving of full-width Mixer-B/32 (bf16, random
+    weights from seed 0): calibrate from 128 images and 128 captions, save
+    the artifact and serve it from a second engine bit for bit; the three
+    noise-floor gates; feature agreement with bf16; the HTTP endpoints of an
+    int8 engine with ``input_hw=(256, 256)`` (the planar front end); a
+    262,144-row device bank. The kernel launch counters stay at 0 through
+    all of it; then the timing."""
+    import os
+    import shutil
+    import tempfile
+
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.evals import quant_gate as gates
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["mixer-b32"]
+    require(not cfg.fused_mlp and cfg.compute_dtype == "bfloat16", "phase 6 serves the bf16 plain-chain config")
+    sites = INT8_CALIB_N * cfg.vision_tokens * 4 * cfg.vision_width
+    require(sites > 2**24, f"the vision ch_hidden site holds {sites} elements, not above 2^24")
+    out = {"calibration_images": INT8_CALIB_N, "calibration_captions": len(CAPTIONS), "ch_hidden_site_elements": sites,
+           "gate_n": INT8_GATE_N}
+    root = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    try:
+        free_card()
+        model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+        artifact = os.path.join(root, "scales.npz")
+        counters.reset()
+
+        # calibrate, quantize, save; a second engine from the artifact
+        a = InferenceEngine(model)
+        t0 = time.perf_counter()
+        a.enable_int8(calib, CAPTIONS, save_calibration=artifact)
+        torch.cuda.synchronize()
+        out["enable_int8_s"] = time.perf_counter() - t0
+        require(a.path_kinds == {"image": "int8", "text": "int8"}, a.path_kinds)
+        qvis, qtext = a._image_path[1], a._text_path[1]
+        out["a_scales"] = {"image": {k: v.float().cpu().numpy().tolist() for k, v in qvis.a_scales().items()},
+                           "text": {k: v.float().cpu().numpy().tolist() for k, v in qtext.a_scales().items()}}
+        out["artifact_bytes"] = os.path.getsize(artifact)
+        b = InferenceEngine(model)
+        b.enable_int8(calibration=artifact)
+        probe = gates.synthetic_images(100, cfg.image_resolution, seed=5)
+        img_a, txt_a = a.encode_image_arrays(probe), a.encode_text(TEXTS)
+        check_features(img_a, 100, cfg.embed_dim, "int8 encode_image_arrays(100)")
+        check_features(txt_a, len(TEXTS), cfg.embed_dim, "int8 encode_text(40)")
+        require(np.array_equal(b.encode_image_arrays(probe), img_a), "the artifact's engine: image features differ")
+        require(np.array_equal(b.encode_text(TEXTS), txt_a), "the artifact's engine: text features differ")
+        del b
+        out["text_int8_card_vs_cpu"] = int8_text_card_vs_cpu(model, qtext.a_scales())
+
+        # feature agreement with the bf16 engine on the same weights
+        f = InferenceEngine(model)
+        cos_img = (img_a * f.encode_image_arrays(probe)).sum(-1)
+        cos_txt = (txt_a * f.encode_text(TEXTS)).sum(-1)
+        out["cosine_int8_vs_bf16"] = {"image_min": float(cos_img.min()), "image_mean": float(cos_img.mean()),
+                                      "text_min": float(cos_txt.min()), "text_mean": float(cos_txt.mean())}
+        log(f"int8 vs bf16 features: {out['cosine_int8_vs_bf16']}")
+
+        # the three noise-floor gates
+        classifier = gates.build_float_classifier(model, GATE_CLASSES, GATE_TEMPLATES, batch_size=INT8_GATE_BATCH)
+        gate_out = {}
+        t0 = time.perf_counter()
+        imgs = gates.synthetic_images(INT8_GATE_N, cfg.image_resolution, seed=3)
+        gate_out["image"] = gates.noise_floor_gate(model, imgs, classifier, calibrate_n=INT8_CALIB_N,
+                                                   batch_size=INT8_GATE_BATCH)
+        gate_out["image"]["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        src = gates.synthetic_images(INT8_GATE_N, 256, seed=1)
+        gate_out["frontend_planar"] = gates.frontend_noise_floor_gate(
+            model, src, classifier, calibrate_n=INT8_CALIB_N, batch_size=INT8_GATE_BATCH, front_end="planar")
+        gate_out["frontend_planar"]["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f32 = gates.float32_twin(model)
+        bank_imgs = torch.from_numpy(gates.synthetic_images(512, cfg.image_resolution, seed=2)).to(dev)
+        from clip_mixer_tpu_torch.models.clip import l2_normalize
+        from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+
+        with torch.inference_mode():
+            bank = l2_normalize(f32.encode_image(normalize_images(bank_imgs, dtype=torch.float32))).cpu().numpy()
+        del f32, bank_imgs
+        captions = tokenize(gate_captions()[:INT8_GATE_N], cfg.context_length, truncate=True)
+        require(len(captions) == INT8_GATE_N, f"{len(captions)} gate captions")
+        gate_out["text"] = gates.text_noise_floor_gate(model, captions, bank.T, calibrate_n=INT8_CALIB_N,
+                                                       batch_size=512)
+        gate_out["text"]["s"] = time.perf_counter() - t0
+        for k, g in gate_out.items():
+            log(f"gate {k}: flips bf16 {g['flips_bf16']} int8 {g['flips_int8']} of {g['n']}, ratio "
+                f"{g['flip_ratio']:.3f} (CI {g['flip_ratio_ci_low']:.3f}..{g['flip_ratio_ci_high']:.3f}), "
+                f"passed {g['passed']}")
+        out["gates"] = gate_out
+        del imgs, src
+        # A tower is served int8 only if its gate passed (the JAX package's release refuses
+        # int8 on a failed gate). The int8 image path through the planar front end is this
+        # phase's main path: its two gates must pass. The text gate's verdict decides how
+        # text is served; the JAX package's own text gate fails at this width on the same
+        # weights (scripts/torch_int8_text_gate_witness.py, PERF.md section 6).
+        for k in ("image", "frontend_planar"):
+            require(gate_out[k]["passed"], f"the {k} noise-floor gate failed: {gate_out[k]}")
+        int8_text = gate_out["text"]["passed"]
+        out["served_int8"] = {"image": True, "text": int8_text}
+        if not int8_text:
+            log("the text gate failed: the serving engine keeps the text tower in bf16 (PERF.md, PR 9)")
+
+        # the serving surface of an int8 engine on 256x256 sources (planar front end)
+        c = InferenceEngine(model, input_hw=(256, 256))
+        c.enable_int8(gates.synthetic_images(INT8_CALIB_N, 256, seed=0), CAPTIONS if int8_text else None)
+        c.load_classifier(GATE_CLASSES, GATE_TEMPLATES)
+        c.warmup()
+        http_imgs = gates.synthetic_images(12, 256, seed=8)
+        health, metrics = int8_http(c, http_imgs, TEXTS[:6], {"image": "int8", "text": "int8" if int8_text else "float"})
+        out["http"] = {"healthz": health, "metrics": metrics}
+        out["bank"] = int8_device_bank(c, dev)
+        launches = counters.read()
+        log(f"int8 path launches: {launches}")
+        require(launches == {"ln_mlp": 0, "preprocess": 0, "fused_mixer_block": 0},
+                f"the int8 path launched a kernel: {launches}")
+        out["launches"] = launches
+
+        # timing: the towers, _int_mm alone, the front end
+        qvis_c = c._image_path[1]
+        out["towers_ms"] = time_int8_towers(model, qvis, qtext, dev)
+        out["int_mm"] = time_int_mm(dev)
+        out["front_end_b128"] = time_int8_front_end(model, qvis_c, dev)
+        del a, c, f, model, qvis, qtext, qvis_c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1563,9 +2012,12 @@ def main() -> int:
     emit({"train": train})
     trainer = trainer_path(dev, counters)
     emit({"trainer": trainer})
+    int8 = int8_path(dev, counters)
+    emit({"int8_serving": int8})
     for row in kernels:  # each kernel's launches in the train phase's 8 steps on its route, and in the trainer's run A
         row["train_launches"] = {r: train[r]["launches"][row["name"]] for r in ("plain", "fused_mlp", "fused_block")}
         row["train_launches"]["trainer"] = trainer["launches"][row["name"]]
+        row["int8_launches"] = int8["launches"][row["name"]]
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

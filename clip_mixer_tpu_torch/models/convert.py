@@ -7,11 +7,15 @@ state-dict keys (the names the port's modules carry); :func:`load_jax_params`
 loads that into a :class:`~clip_mixer_tpu_torch.models.clip.CLIP` strictly.
 :func:`load_jax_mixer` fills a single block or tower from its JAX subtree;
 both go through the one per-block mapping, :func:`jax_block_arrays`.
+:func:`load_jax_qparams` builds the int8 towers of ``ops/quant.py`` from the
+JAX package's quantized tree (``quantize_vision_tower`` /
+``quantize_text_tower``), so both packages run the same int8 weights and
+scales.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,6 +23,7 @@ import torch
 from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, MixerTower
 from clip_mixer_tpu_torch.models.towers import require_mixer
+from clip_mixer_tpu_torch.ops.quant import QuantTextTower, QuantVisionTower
 
 
 def _f32(a) -> np.ndarray:
@@ -116,3 +121,43 @@ def load_jax_params(model, tree: Mapping):
     """Fill ``model`` (a port CLIP) from a JAX param tree; returns ``model``."""
     model.load_state_dict(jax_params_to_state_dict(tree, model.cfg), strict=True)
     return model
+
+
+def _copy_pack(q_out_in: torch.Tensor, scale: torch.Tensor, pack: Mapping) -> None:
+    """A JAX int8 pack ``{"q": [in, out], "scale": [out]}`` into a quant
+    module's [out, in] buffer and its scale."""
+    q_out_in.copy_(torch.from_numpy(np.ascontiguousarray(np.asarray(pack["q"], np.int8).T)))
+    scale.copy_(torch.from_numpy(_f32(pack["scale"])))
+
+
+def _load_quant_blocks(blocks, cm: Mapping) -> None:
+    """A JAX tower's stacked int8 channel mix into :class:`QuantMixerBlock`s;
+    the biases it carries must be the float model's."""
+    for i, block in enumerate(blocks):
+        for name, bias in (("in", block.b_in), ("out", block.b_out)):
+            if not np.array_equal(_f32(cm[f"b_{name}"])[i], bias.detach().cpu().numpy()):
+                raise ValueError(
+                    f"block {i}: b_{name} differs from the model's; load the tree's float "
+                    "weights into the model first (load_jax_params)"
+                )
+            _copy_pack(getattr(block, f"w_{name}_q"), getattr(block, f"w_{name}_scale"), _layer(cm[f"w_{name}_q"], i))
+
+
+@torch.no_grad()
+def load_jax_qparams(model, qtree: Mapping) -> Tuple[Optional[QuantVisionTower], Optional[QuantTextTower]]:
+    """The int8 towers of a JAX quantized tree (numpy leaves) on ``model``,
+    the port CLIP that holds the tree's float weights (``load_jax_params``):
+    ``(vision, text)``, each None where the tree's tower is not quantized.
+    The int8 weights, their scales and the activation scales (``a_scales``,
+    absent: dynamic) are the tree's."""
+    v, t = qtree["visual"], qtree["text"]
+    vision = text = None
+    if "kernel_q" in v["patch_embed"]:
+        vision = QuantVisionTower(model.visual, v.get("a_scales"))
+        _copy_pack(vision.patch_q, vision.patch_scale, v["patch_embed"]["kernel_q"])
+        vision.set_planar()
+        _load_quant_blocks(vision.blocks, v["tower"]["blocks"]["channel_mix"])
+    if "w_in_q" in t["tower"]["blocks"]["channel_mix"]:
+        text = QuantTextTower(model, t.get("a_scales"))
+        _load_quant_blocks(text.blocks, t["tower"]["blocks"]["channel_mix"])
+    return vision, text

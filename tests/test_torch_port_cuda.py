@@ -333,3 +333,94 @@ def test_device_prefetch_copies_each_batch_to_the_card(cuda):
             assert d[k].is_cuda and d[k].dtype == torch.as_tensor(h[k]).dtype
             # consumed on the current stream with no synchronisation of ours
             np.testing.assert_array_equal(d[k].clone().cpu().numpy(), h[k])
+
+
+# ---- the int8 serving path (ops/quant.py: torch._int_mm, the planar front end)
+
+
+@pytest.mark.parametrize("M,K,N", [(6400, 768, 3072), (6400, 3072, 768), (9856, 512, 2048), (392, 3072, 768), (24, 64, 8)])
+@pytest.mark.parametrize("layout", ["out_in_view", "in_out"])
+def test_int8_matmul_on_the_card_matches_the_cpu(cuda, M, K, N, layout):
+    """The int32 sums are exact on both devices, and the quantisation and
+    the f32 dequantisation are single IEEE operations: equal bits."""
+    from clip_mixer_tpu_torch.ops.quant import int8_matmul, quantize_weight
+
+    rng = np.random.default_rng(M + K)
+    x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(np.float32))
+    wq = quantize_weight(torch.from_numpy(rng.normal(0, K**-0.5, (K, N)).astype(np.float32)))
+    q = wq["q"].t().contiguous().t() if layout == "out_in_view" else wq["q"]
+    xq = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    acc = torch._int_mm(xq.to(cuda), q.to(cuda))
+    torch.testing.assert_close(acc.cpu(), torch._int_mm(xq, q), rtol=0, atol=0)
+    scale = torch.tensor(np.float32(np.abs(x.numpy()).max() / 127.0))
+    for s in (scale, None):
+        want = int8_matmul(x, {"q": q, "scale": wq["scale"]}, s, torch.float32)
+        got = int8_matmul(x.to(cuda), {"q": q.to(cuda), "scale": wq["scale"].to(cuda)},
+                          None if s is None else s.to(cuda), torch.float32)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def _quant_model(device, dtype="bfloat16"):
+    from clip_mixer_tpu_torch import CLIP, CLIPConfig
+
+    cfg = CLIPConfig(embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128, vision_patch_size=16,
+                     context_length=77, vocab_size=49408, text_width=128, text_heads=1, text_layers=2,
+                     compute_dtype=dtype)
+    return CLIP(cfg, device=device, generator=torch.Generator().manual_seed(3)).eval()
+
+
+def test_int8_encoders_on_the_card_match_the_cpu(cuda):
+    """bf16 on both devices, the same int8 weights and scales: per-row
+    cosine >= 0.999 (bf16 sums in other orders), as the JAX comparison's
+    bf16 bound."""
+    from clip_mixer_tpu_torch.evals.quant_gate import synthetic_images
+    from clip_mixer_tpu_torch.ops import quant as tq
+    from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+
+    u8 = torch.from_numpy(synthetic_images(16, 64, seed=2))
+    text = torch.from_numpy(np.random.default_rng(4).integers(1, 49407, (16, 77)).astype(np.int32))
+    text[:, 20] = 49407
+    cpu = _quant_model("cpu")
+    imgs = normalize_images(u8, dtype=torch.bfloat16)
+    scales = tq.calibrate_vision_tower(cpu, imgs)
+    t_scales = tq.calibrate_text_tower(cpu, text)
+    card = _quant_model(cuda)
+    qv, qt = tq.quantize_vision_tower(card, scales), tq.quantize_text_tower(card, t_scales)
+    qv_cpu, qt_cpu = tq.quantize_vision_tower(cpu, scales), tq.quantize_text_tower(cpu, t_scales)
+    for name, buf in qv.named_buffers():
+        torch.testing.assert_close(buf.cpu(), dict(qv_cpu.named_buffers())[name], rtol=0, atol=0)
+    for got, want in ((tq.encode_image_q(qv, imgs.to(cuda)), tq.encode_image_q(qv_cpu, imgs)),
+                      (tq.encode_text_q(qt, text.to(cuda)), tq.encode_text_q(qt_cpu, text))):
+        cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want.float(), dim=-1)
+        assert float(cos.min()) >= 0.999, float(cos.min())
+
+
+def test_planar_front_end_on_the_card_matches_the_cpu(cuda):
+    """The bf16 resize sums in other orders: at most 1e-3 of the int8 patch
+    elements differ, and those by 1."""
+    from clip_mixer_tpu_torch import CLIPConfig
+    from clip_mixer_tpu_torch.evals.quant_gate import synthetic_images
+    from clip_mixer_tpu_torch.ops.quant import make_planar_front_end
+
+    cfg = CLIPConfig()  # Mixer-B/32: 256 -> 224, 32-pixel patches
+    u8 = torch.from_numpy(synthetic_images(8, 256, seed=1))
+    front = make_planar_front_end(cfg, (256, 256), 0.02)
+    got, want = front(u8.to(cuda)).cpu(), front(u8)
+    assert got.dtype == torch.int8 and got.shape == (8, 49, 3072)
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+
+def test_device_bank_on_the_card_matches_the_host(cuda):
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine(_quant_model(cuda, "float32"), batch_buckets=(8, 32))
+    feats = np.random.default_rng(0).normal(size=(20000, 32)).astype(np.float32)
+    ids = [str(i) for i in range(20000)]
+    texts = [f"a photo of a {w}" for w in ("cat", "dog", "car", "tree", "boat")]
+    engine.load_index(feats, ids, device=False)
+    host = engine.retrieve(texts, top_k=5)
+    engine.load_index(feats, ids)  # 20000 rows >= DEVICE_BANK_MIN_ROWS: on the card
+    assert isinstance(engine._index[0], torch.Tensor) and engine._index[0].is_cuda
+    dev = engine.retrieve(texts, top_k=5)
+    assert [[r["id"] for r in row] for row in dev] == [[r["id"] for r in row] for row in host]
