@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, trainer and int8 serving paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, training, trainer, int8 serving and transformer (ViT) paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    PyTorch version on the card at the shapes the serving and training paths
    give it (``ln_mlp`` at both towers' buckets 128 and 8 and at the train
    batches 256 and 4096, ``preprocess`` at B = 128, 8 and 1 and at other
-   input shapes, odd widths too, in bf16 and f32, and ``fused_mixer_block_tbd``
+   input shapes, odd widths too, in bf16 and f32, and at 384x384 -> 336
+   (``vit-l14-336``'s output size) in bf16, and ``fused_mixer_block_tbd``
    at both towers' buckets 128 and 8 and the train batch 256, a B no batch
    tile divides, and f32), and each of
    ``ln_mlp``'s three bf16 stages (LN pass, GEMM 1 with QuickGELU, GEMM 2
@@ -117,6 +118,33 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    against the 1,979 int8 peak; the planar front end at B = 128 beside
    ``preprocess``.
 
+7. The transformer towers, with every launch counter set to 0 before each
+   part and read after it (no kernel of ours runs in the towers: attention
+   and the MLP are plain PyTorch, op for op the JAX chain). 7a: full-width
+   ViT-B/32 (bf16, weights from seed 0) behind an ``InferenceEngine`` on
+   256x256 sources, warmed up, serving ``encode_text`` of 5 captions,
+   ``encode_image_arrays`` of 7 images and ``similarity``; then
+   ``make_batch_preprocess(backend="kernel")`` -> ``encode_image`` at
+   B = 128 (one ``preprocess`` launch) against the ``"torch"`` front end
+   with the same towers (cosine >= 0.999); the towers at buckets 8 and 128
+   (CUDA events, 10 calls, in turns); f32 on the card (TF32 off) against
+   f32 on the CPU at B = 4 (cosine >= 0.99999). 7c: ViT-B/32 int8:
+   calibration on 128 images and 128 captions, its artifact served bit for
+   bit by a second engine, the image and text gates at n = 4096, an engine
+   on 256x256 sources that serves int8 only the towers whose gate passed,
+   the int8 text features unmoved by tokens after the EOT (bit for bit on
+   the card), and the int8 towers timed beside the bf16 ones. 7b:
+   full-width ViT-L/14 (bf16): the towers at buckets 8 and 128, the front
+   end + ``encode_image`` at B = 128 both ways, f32 on the card against the
+   CPU at B = 2 (>= 0.99999) and bf16 against f32 on the card
+   (``VIT_L_BF16_COSINE``). 7d: ViT-B/32 trains 8 steps at B = 256 on one
+   fixed batch at ``TrainConfig``'s defaults in bf16 and in f32 (reported:
+   it falls to the uniform-logit plateau) and at ``VIT_TRAIN_LR`` (the 8th
+   loss <= 0.9x the first), then one step under each
+   remat policy (the same loss bits, the gradient norm within 1e-4);
+   step ms, images a second, peak memory and ``train_mfu`` from
+   ``vit_flops``.
+
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits 1 before doing anything.
@@ -188,6 +216,7 @@ PREPROCESS_CASES = [  # (label, input_hw, n_px, B, dtype): the bench front end, 
     ("300x200_f32", (300, 200), 224, 8, torch.float32),
     ("300x200_b1_bf16", (300, 200), 224, 1, torch.bfloat16),
     ("90x131_f32", (90, 131), 64, 3, torch.float32),  # W % 4 != 0: the kernel's byte loads
+    ("384x384_336_bf16", (384, 384), 336, 8, torch.bfloat16),  # vit-l14-336's output size
 ]
 PREPROCESS_TIMED = ("bf16", "b8_bf16", "f32")  # timed warm and cold in phase 3
 # (label, B, T, D, dtype): both towers at buckets 128 and 8 and at the train
@@ -999,17 +1028,17 @@ def train_flops_per_sample(cfg) -> float:
     return 3.0 * float(vision + text)
 
 
-def train_setup(cfg, dev, fused_block=False, accum_steps=1, steps=TRAIN_STEPS):
-    """Mixer CLIP from seed 0 (optionally with its towers through
-    ``mixer_tower_fused``), its state and its train step at TrainConfig's
-    defaults, with ``total_steps`` the steps run."""
+def train_setup(cfg, dev, fused_block=False, accum_steps=1, steps=TRAIN_STEPS, tcfg=None):
+    """CLIP from seed 0 (optionally with its Mixer towers through
+    ``mixer_tower_fused``), its state and its train step at ``tcfg``
+    (TrainConfig's defaults when None), with ``total_steps`` the steps run."""
     from clip_mixer_tpu_torch import CLIP
     from clip_mixer_tpu_torch.config import TrainConfig
     from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
     from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
     from clip_mixer_tpu_torch.train.optimizer import make_optimizer
 
-    tcfg = TrainConfig()
+    tcfg = TrainConfig() if tcfg is None else tcfg
     model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     if fused_block:
         route_towers(model, True)
@@ -1953,6 +1982,405 @@ def int8_path(dev, counters):
     return out
 
 
+# ---- phase 7: the transformer towers (ViT-B/32 and ViT-L/14) ---------------------
+
+VIT_PRESET = "vit-b32"  # served in bf16 and int8 and trained
+VIT_L_PRESET = "vit-l14"  # served in bf16
+VIT_BUCKETS = (8, 128)
+VIT_F32_N = {VIT_PRESET: 4, VIT_L_PRESET: 2}  # rows held in f32, card against CPU
+VIT_F32_COSINE = 0.99999  # per row, f32 on the card (TF32 off) against f32 on the CPU
+# per row, ViT-L/14 bf16 against f32 on the card; set from the first reading
+# on an H100 80GB HBM3 (CHANGES.md), never below 0.99
+VIT_L_BF16_COSINE = 0.9995  # read 0.99992 (image) and 0.99992 (text) at B = 2
+VIT_TEXT_TAIL = 7  # a token id written after the EOT: the text features must not move
+VIT_REMAT_NORM_TOL = 1e-4  # one step under remat: |d grad_norm| / grad_norm against no remat
+# At TrainConfig's defaults (lr 5e-4, 2 warmup steps) ViT-B/32 on one fixed
+# batch of 256 falls to the plateau of uniform logits, ln 256 = 5.545, and
+# stays there (8th loss 0.998 of the first, in f32 as in bf16: the model's
+# dynamics, not the port's rounding; H100 runs, PERF.md section 6).
+# Those 8 steps are run and reported, in both; the fall TRAIN_LOSS_FALL is required
+# at VIT_TRAIN_LR (read 0.859), near the reference's 5e-4 scaled from its
+# 32,768 batch to 256 with its 2,000-step warmup.
+VIT_TRAIN_LR = 5e-5
+
+
+def vit_flops(cfg) -> float:
+    """The analytic forward FLOPs of one sample through both transformer
+    towers: per block 24 T W^2 (QKV 6, out 2, MLP 16) + 4 T^2 W (scores and
+    their product with v), the patch embed, both projections."""
+    def tower(t, w, layers):
+        return layers * (24 * t * w * w + 4 * t * t * w)
+
+    g, p, w = cfg.grid_size, cfg.vision_patch_size, cfg.vision_width
+    vision = 2 * (g * g) * (p * p * 3) * w + tower(cfg.vision_tokens, w, cfg.vision_layers) + 2 * w * cfg.embed_dim
+    text = tower(cfg.context_length, cfg.text_width, cfg.text_layers) + 2 * cfg.text_width * cfg.embed_dim
+    return float(vision + text)
+
+
+def in_turns(ways, iters=10):
+    """Each of ``ways`` timed with CUDA events, in turns A B .. B A, each the
+    mean of ``iters`` back-to-back calls: the mean of the two runs and each
+    run."""
+    times = {k: [] for k in ways}
+    with torch.inference_mode():
+        for k in [*ways, *reversed(ways)]:
+            times[k].append(cuda_ms(ways[k], iters=iters))
+    row = {k: sum(v) / len(v) for k, v in times.items()}
+    row["each_run_ms"] = times
+    return row
+
+
+def tower_inputs(cfg, B, dev, seed):
+    """Random bf16 inputs of both towers at batch ``B``."""
+    g = torch.Generator().manual_seed(seed)
+    xv = torch.randn(B, cfg.vision_tokens, cfg.vision_width, generator=g).to(device=dev, dtype=torch.bfloat16)
+    xt = torch.randn(B, cfg.context_length, cfg.text_width, generator=g).to(device=dev, dtype=torch.bfloat16)
+    return xv, xt
+
+
+def time_vit_towers(model, dev):
+    """Both bf16 towers at each of VIT_BUCKETS, in turns."""
+    rows = {}
+    for B in VIT_BUCKETS:
+        xv, xt = tower_inputs(model.cfg, B, dev, seed=12)
+        rows[f"b{B}"] = in_turns({"vision_ms": lambda: model.visual.transformer(xv),
+                                  "text_ms": lambda: model.transformer(xt)})
+        log(f"{model.cfg.vision_width}-wide ViT towers at bucket {B}: {rows[f'b{B}']}")
+    return rows
+
+
+def vit_cosines(model, n):
+    """Per-row cosines on ``n`` images and captions of the same weights: f32
+    on the card against f32 on the CPU, and ``model`` (bf16 on the card)
+    against f32 on the card."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.evals.quant_gate import float32_twin, synthetic_images
+    from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    cfg = model.cfg
+    images = normalize_images(torch.from_numpy(synthetic_images(n, cfg.image_resolution, seed=13)))
+    text = torch.from_numpy(tokenize(TEXTS[:n], cfg.context_length, truncate=True))
+    cpu = CLIP(cfg.replace(compute_dtype="float32"), device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    card = float32_twin(model)
+    dev = model.device
+    out = {}
+    with torch.inference_mode():
+        for what, fn in (("image", lambda m, d: m.encode_image(images.to(d))),
+                         ("text", lambda m, d: m.encode_text(text.to(d)))):
+            want, got = fn(cpu.eval(), "cpu"), fn(card, dev).float()
+            bf16 = fn(model, dev).float()
+            out[f"{what}_f32_card_vs_cpu"] = float(torch.nn.functional.cosine_similarity(got.cpu(), want, dim=-1).min())
+            out[f"{what}_bf16_vs_f32_card"] = float(torch.nn.functional.cosine_similarity(bf16, got, dim=-1).min())
+    del cpu, card
+    return out
+
+
+def vit_serving(dev, counters):
+    """7a: full-width ViT-B/32 (bf16, seed 0) behind an InferenceEngine on
+    256x256 sources, and the bench front end through the preprocess kernel."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+
+    cfg = PRESETS[VIT_PRESET]
+    require(cfg.use_transformer and cfg.compute_dtype == "bfloat16", f"{VIT_PRESET}: {cfg}")
+    images = np.random.default_rng(0).integers(0, 256, (128, 256, 256, 3), dtype=np.uint8)
+    model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    out = {"preset": VIT_PRESET, "params": sum(p.numel() for p in model.parameters())}
+    engine = InferenceEngine(model, input_hw=(256, 256))
+    counters.reset()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    out["warmup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    txt = engine.encode_text(TEXTS[:5])
+    out["encode_text_5_ms"] = (time.perf_counter() - t0) * 1e3
+    check_features(txt, 5, cfg.embed_dim, "ViT encode_text(5)")
+    t0 = time.perf_counter()
+    img = engine.encode_image_arrays(images[:7])
+    out["encode_image_7_ms"] = (time.perf_counter() - t0) * 1e3
+    check_features(img, 7, cfg.embed_dim, "ViT encode_image_arrays(7)")
+    sims = engine.similarity(images[:3], TEXTS[:4])
+    require(sims.shape == (3, 4) and np.isfinite(sims).all(), sims)
+    np.testing.assert_allclose(sims, 100.0 * img[:3] @ txt[:4].T, atol=1e-3)
+
+    # the bench front end: the preprocess kernel -> encode_image at batch 128,
+    # against the "torch" front end with the same towers
+    pre_kernel = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="kernel")
+    pre_torch = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="torch")
+    x = torch.from_numpy(images).to(dev)
+    with torch.inference_mode():
+        front = model.encode_image(pre_kernel(x)).float()
+    torch.cuda.synchronize()
+    launches = counters.read()
+    log(f"ViT-B/32 serving launches: {launches}")
+    require(launches["preprocess"] == 1 and launches["ln_mlp"] == 0 and launches["fused_mixer_block"] == 0,
+            f"ViT-B/32 serving launched {launches}: expected preprocess once, no mixer kernel")
+    with torch.inference_mode():
+        front_ref = model.encode_image(pre_torch(x)).float()
+    cos = float(torch.nn.functional.cosine_similarity(front, front_ref, dim=-1).min())
+    require(cos >= COSINE_MIN, f"ViT-B/32 front end: kernel vs torch preprocess cosine {cos} < {COSINE_MIN}")
+    out["front_end128_min_cosine_vs_torch"] = cos
+    out["launches"] = launches
+    out["front_end128_ms"] = in_turns({"kernel_ms": lambda: model.encode_image(pre_kernel(x)),
+                                       "torch_ms": lambda: model.encode_image(pre_torch(x))})
+    out["towers_ms"] = time_vit_towers(model, dev)
+    out["cosines"] = vit_cosines(model, VIT_F32_N[VIT_PRESET])
+    log(f"ViT-B/32 cosines: {out['cosines']}")
+    for what in ("image", "text"):
+        got = out["cosines"][f"{what}_f32_card_vs_cpu"]
+        require(got >= VIT_F32_COSINE, f"ViT-B/32 {what}: f32 card vs CPU cosine {got} < {VIT_F32_COSINE}")
+    del engine
+    return out, model
+
+
+def vit_large(dev, counters):
+    """7b: full-width ViT-L/14 (bf16, seed 0): the towers at each bucket, the
+    front end + encode_image at B = 128, and the card against the CPU."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess
+
+    cfg = PRESETS[VIT_L_PRESET]
+    free_card()
+    t0 = time.perf_counter()
+    model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    out = {"preset": VIT_L_PRESET, "params": sum(p.numel() for p in model.parameters()),
+           "build_s": time.perf_counter() - t0}
+    x = torch.from_numpy(np.random.default_rng(14).integers(0, 256, (128, 256, 256, 3), dtype=np.uint8)).to(dev)
+    pre_kernel = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="kernel")
+    pre_torch = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="torch")
+    counters.reset()
+    with torch.inference_mode():
+        front = model.encode_image(pre_kernel(x)).float()
+        front_ref = model.encode_image(pre_torch(x)).float()
+    launches = counters.read()
+    require(launches["preprocess"] == 1 and launches["ln_mlp"] == 0 and launches["fused_mixer_block"] == 0,
+            f"ViT-L/14 launched {launches}")
+    cos = float(torch.nn.functional.cosine_similarity(front, front_ref, dim=-1).min())
+    require(cos >= COSINE_MIN, f"ViT-L/14 front end: kernel vs torch preprocess cosine {cos} < {COSINE_MIN}")
+    out.update(launches=launches, front_end128_min_cosine_vs_torch=cos)
+    out["front_end128_ms"] = in_turns({"kernel_ms": lambda: model.encode_image(pre_kernel(x)),
+                                       "torch_ms": lambda: model.encode_image(pre_torch(x))})
+    out["towers_ms"] = time_vit_towers(model, dev)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del x, front, front_ref
+    out["cosines"] = vit_cosines(model, VIT_F32_N[VIT_L_PRESET])
+    out["tol"] = (f"f32 card vs CPU >= {VIT_F32_COSINE}, bf16 vs f32 on the card >= {VIT_L_BF16_COSINE} "
+                  "(per row, both towers)")
+    log(f"ViT-L/14: {out}")
+    for what in ("image", "text"):
+        got = out["cosines"][f"{what}_f32_card_vs_cpu"]
+        require(got >= VIT_F32_COSINE, f"ViT-L/14 {what}: f32 card vs CPU cosine {got} < {VIT_F32_COSINE}")
+        got = out["cosines"][f"{what}_bf16_vs_f32_card"]
+        require(got >= VIT_L_BF16_COSINE, f"ViT-L/14 {what}: bf16 vs f32 cosine {got} < {VIT_L_BF16_COSINE}")
+    del model
+    free_card()
+    return out
+
+
+def vit_int8(dev, counters, model):
+    """7c: ViT-B/32 int8: calibrate on 128 images and 128 captions, the
+    artifact served bit for bit by a second engine, the image and text
+    gates at INT8_GATE_N (a tower is served int8 only if its gate passed),
+    the int8 text tower's causality on the card, and the int8 towers timed
+    beside the bf16 ones."""
+    import os
+    import shutil
+    import tempfile
+
+    from clip_mixer_tpu_torch.evals import quant_gate as gates
+    from clip_mixer_tpu_torch.models.clip import l2_normalize
+    from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+    from clip_mixer_tpu_torch.ops.quant import encode_text_q
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    cfg = model.cfg
+    out = {"calibration_images": INT8_CALIB_N, "calibration_captions": len(CAPTIONS), "gate_n": INT8_GATE_N}
+    root = tempfile.mkdtemp(prefix="chip_smoke_vit_int8_")
+    try:
+        counters.reset()
+        calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+        artifact = os.path.join(root, "scales.npz")
+        a = InferenceEngine(model)
+        a.enable_int8(calib, CAPTIONS, save_calibration=artifact)
+        require(a.path_kinds == {"image": "int8", "text": "int8"}, a.path_kinds)
+        qvis, qtext = a._image_path[1], a._text_path[1]
+        b = InferenceEngine(model)
+        b.enable_int8(calibration=artifact)
+        probe = gates.synthetic_images(32, cfg.image_resolution, seed=5)
+        img_a, txt_a = a.encode_image_arrays(probe), a.encode_text(TEXTS)
+        check_features(img_a, 32, cfg.embed_dim, "ViT int8 encode_image_arrays(32)")
+        check_features(txt_a, len(TEXTS), cfg.embed_dim, "ViT int8 encode_text(40)")
+        require(np.array_equal(b.encode_image_arrays(probe), img_a), "ViT int8 artifact: image features differ")
+        require(np.array_equal(b.encode_text(TEXTS), txt_a), "ViT int8 artifact: text features differ")
+        del b
+        f = InferenceEngine(model)
+        cos_img, cos_txt = (img_a * f.encode_image_arrays(probe)).sum(-1), (txt_a * f.encode_text(TEXTS)).sum(-1)
+        out["cosine_int8_vs_bf16"] = {"image_min": float(cos_img.min()), "image_mean": float(cos_img.mean()),
+                                      "text_min": float(cos_txt.min()), "text_mean": float(cos_txt.mean())}
+
+        # the int8 text tower ignores the tokens after the EOT, bit for bit
+        tokens = torch.from_numpy(tokenize(TEXTS, cfg.context_length, truncate=True)).to(dev)
+        after = torch.arange(cfg.context_length, device=dev)[None, :] > tokens.argmax(-1, keepdim=True)
+        with torch.inference_mode():
+            same = torch.equal(encode_text_q(qtext, tokens),
+                               encode_text_q(qtext, torch.where(after, VIT_TEXT_TAIL, tokens)))
+        require(same, "the ViT int8 text features moved with tokens after the EOT")
+        out["text_int8_ignores_tokens_after_eot"] = same
+
+        # the gates, at the JAX package's n
+        classifier = gates.build_float_classifier(model, GATE_CLASSES, GATE_TEMPLATES, batch_size=INT8_GATE_BATCH)
+        gate_out = {}
+        t0 = time.perf_counter()
+        imgs = gates.synthetic_images(INT8_GATE_N, cfg.image_resolution, seed=3)
+        gate_out["image"] = gates.noise_floor_gate(model, imgs, classifier, calibrate_n=INT8_CALIB_N,
+                                                   batch_size=INT8_GATE_BATCH)
+        gate_out["image"]["s"] = time.perf_counter() - t0
+        del imgs
+        t0 = time.perf_counter()
+        f32 = gates.float32_twin(model)
+        bank_imgs = torch.from_numpy(gates.synthetic_images(512, cfg.image_resolution, seed=2)).to(dev)
+        with torch.inference_mode():
+            bank = l2_normalize(f32.encode_image(normalize_images(bank_imgs, dtype=torch.float32))).cpu().numpy()
+        del f32, bank_imgs
+        captions = tokenize(gate_captions()[:INT8_GATE_N], cfg.context_length, truncate=True)
+        gate_out["text"] = gates.text_noise_floor_gate(model, captions, bank.T, calibrate_n=INT8_CALIB_N,
+                                                       batch_size=512)
+        gate_out["text"]["s"] = time.perf_counter() - t0
+        for k, g in gate_out.items():
+            log(f"ViT gate {k}: flips bf16 {g['flips_bf16']} int8 {g['flips_int8']} of {g['n']}, ratio "
+                f"{g['flip_ratio']:.3f} (CI {g['flip_ratio_ci_low']:.3f}..{g['flip_ratio_ci_high']:.3f}), "
+                f"passed {g['passed']}")
+        out["gates"] = gate_out
+
+        # a tower is served int8 only if its gate passed
+        served = {k: bool(gate_out[k]["passed"]) for k in ("image", "text")}
+        out["served_int8"] = served
+        c = InferenceEngine(model, input_hw=(256, 256))
+        if any(served.values()):
+            c.enable_int8(gates.synthetic_images(INT8_CALIB_N, 256, seed=0) if served["image"] else None,
+                          CAPTIONS if served["text"] else None)
+        kinds = {k: "int8" if v else "float" for k, v in served.items()}
+        require(c.path_kinds == kinds, f"ViT serving engine: {c.path_kinds}, gates say {kinds}")
+        u8 = np.random.default_rng(15).integers(0, 256, (7, 256, 256, 3), dtype=np.uint8)
+        check_features(c.encode_image_arrays(u8), 7, cfg.embed_dim, "ViT gated engine: encode_image_arrays(7)")
+        check_features(c.encode_text(TEXTS[:5]), 5, cfg.embed_dim, "ViT gated engine: encode_text(5)")
+        out["path_kinds"] = c.path_kinds
+        launches = counters.read()
+        require(launches == {"ln_mlp": 0, "preprocess": 0, "fused_mixer_block": 0},
+                f"the ViT int8 path launched a kernel: {launches}")
+        out["launches"] = launches
+
+        # the int8 towers beside the bf16 ones
+        rows = {}
+        for B in VIT_BUCKETS:
+            xv, xt = tower_inputs(cfg, B, dev, seed=16)
+            for name, q, tower, x in (("vision", qvis, model.visual.transformer, xv),
+                                      ("text", qtext, model.transformer, xt)):
+                rows[f"{name}_b{B}"] = in_turns({"int8_ms": lambda: q.run_blocks(x), "bf16_ms": lambda: tower(x)})
+                log(f"ViT int8 tower {name} at bucket {B}: {rows[f'{name}_b{B}']}")
+        out["towers_ms"] = rows
+        del a, c, f, qvis, qtext
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def vit_train_steps(dev, counters, cfg, batch, tcfg):
+    """TRAIN_STEPS steps from seed 0 at ``tcfg``, steps after TRAIN_WARMUP
+    timed with CUDA events: the readings and the launches."""
+    state, step = train_setup(cfg, dev, tcfg=tcfg)
+    free_card()
+    counters.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            start.record()
+        state, m = step(state, batch)
+        metrics.append(m)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP)
+    flops = 3.0 * vit_flops(cfg)
+    B = batch["images"].shape[0]
+    peak = PEAK_OPS_PER_S[torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32]
+    out = {"B": B, "steps": TRAIN_STEPS, "compute_dtype": cfg.compute_dtype, "learning_rate": tcfg.learning_rate,
+           "warmup_steps": tcfg.warmup_steps, "step_ms": ms, "images_per_s": B / ms * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "train_flops_per_sample": flops,
+           "train_mfu": B * flops / (ms * 1e-3) / peak,
+           "losses": [float(m["loss"]) for m in metrics], "grad_norms": [float(m["grad_norm"]) for m in metrics],
+           "launches": counters.read()}
+    del state, step, metrics
+    free_card()
+    log(f"ViT-B/32 train B={B} {cfg.compute_dtype} lr {tcfg.learning_rate}: {ms:.2f} ms/step, {out['images_per_s']:.0f} img/s, peak "
+        f"{out['peak_mem_gb']:.2f} GB, train_mfu {out['train_mfu']:.3f}, losses {out['losses']}")
+    require(all(np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])), f"ViT train: {out}")
+    require(sum(out["launches"].values()) == 0, f"ViT train launched {out['launches']}")
+    return out
+
+
+def vit_train(dev, counters):
+    """7d: full-width ViT-B/32 (bf16 compute, f32 masters, seed 0) takes
+    TRAIN_STEPS steps at TRAIN_B on one fixed batch at TrainConfig's
+    defaults (reported; also in f32 compute) and at VIT_TRAIN_LR (the 8th
+    loss must be <= TRAIN_LOSS_FALL x the first); then one step under each
+    remat policy against the latter's first step."""
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+
+    cfg = PRESETS[VIT_PRESET]
+    batch = on_device(train_batch(cfg, TRAIN_B, seed=0), dev)
+    # the defaults, in bf16 and in f32 (whether the plateau is the model's or the rounding's)
+    out = {"defaults": vit_train_steps(dev, counters, cfg, batch, TrainConfig()),
+           "defaults_f32": vit_train_steps(dev, counters, cfg.replace(compute_dtype="float32"), batch, TrainConfig())}
+    tcfg = TrainConfig(learning_rate=VIT_TRAIN_LR)
+    out["lr"] = r = vit_train_steps(dev, counters, cfg, batch, tcfg)
+    losses = r["losses"]
+    require(losses[-1] <= TRAIN_LOSS_FALL * losses[0], f"ViT train at lr {VIT_TRAIN_LR}: loss {losses[0]} -> "
+            f"{losses[-1]}")
+    out["launches"] = {k: sum(out[run]["launches"][k] for run in ("defaults", "defaults_f32", "lr"))
+                       for k in r["launches"]}
+    loss1, norm1 = losses[0], r["grad_norms"][0]
+    for policy in REMAT_POLICIES:
+        state, step = train_setup(cfg.replace(remat=True, remat_policy=policy), dev, tcfg=tcfg)
+        free_card()
+        counters.reset()
+        state, m = step(state, batch)
+        one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counters.read()}
+        del state, step, m
+        free_card()
+        out[f"remat_{policy}"] = one
+        log(f"ViT-B/32 train remat {policy}: {one}")
+        require(one["loss"] == loss1, f"ViT remat {policy}: step-1 loss {one['loss']}, {loss1} without remat")
+        require(abs(one["grad_norm"] - norm1) <= VIT_REMAT_NORM_TOL * norm1,
+                f"ViT remat {policy}: step-1 gradient norm {one['grad_norm']}, {norm1} without remat")
+        require(sum(one["launches"].values()) == 0, f"ViT remat {policy} launched {one['launches']}")
+    del batch
+    free_card()
+    return out
+
+
+def vit_path(dev, counters):
+    """Phase 7: the transformer towers, each part with the counters set to 0
+    just before it and read just after."""
+    t0 = time.perf_counter()
+    out = {}
+    out["vit_b32_serving"], model = vit_serving(dev, counters)
+    out["vit_b32_int8"] = vit_int8(dev, counters, model)
+    del model
+    out["vit_l14"] = vit_large(dev, counters)
+    out["vit_b32_train"] = vit_train(dev, counters)
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = {k: out[k]["launches"] for k in ("vit_b32_serving", "vit_b32_int8", "vit_l14", "vit_b32_train")}
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2014,10 +2442,15 @@ def main() -> int:
     emit({"trainer": trainer})
     int8 = int8_path(dev, counters)
     emit({"int8_serving": int8})
+    vit = vit_path(dev, counters)
+    emit({"vit": vit})
     for row in kernels:  # each kernel's launches in the train phase's 8 steps on its route, and in the trainer's run A
         row["train_launches"] = {r: train[r]["launches"][row["name"]] for r in ("plain", "fused_mlp", "fused_block")}
         row["train_launches"]["trainer"] = trainer["launches"][row["name"]]
         row["int8_launches"] = int8["launches"][row["name"]]
+        row["vit_launches"] = {k: v[row["name"]] for k, v in vit["launches"].items()}
+    require(all(vit["launches"][k]["preprocess"] > 0 for k in ("vit_b32_serving", "vit_l14")),
+            "the ViT serving paths never launched preprocess")
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,11 @@ reference triple (image features, text features, exp(logit_scale)) with both
 feature sets L2-normalised; :meth:`CLIP.forward_train` adds the (empty)
 batch-norm statistics of the JAX training forward; :meth:`CLIP.logits` is
 the demo path. The module's state-dict keys are the reference checkpoint's
-(``visual.*``, ``token_embedding.weight``, ``transformer.mixBlocks.*``,
-``ln_final.*``, ``text_projection``, ``logit_scale``), plus ``logit_bias``
-when ``cfg.logit_bias_init`` is set (the SigLIP loss's learnable bias).
+(``visual.*``, ``token_embedding.weight``, ``transformer.mixBlocks.*`` or,
+for transformer towers, ``positional_embedding`` and
+``transformer.resblocks.*``, ``ln_final.*``, ``text_projection``,
+``logit_scale``), plus ``logit_bias`` when ``cfg.logit_bias_init`` is set
+(the SigLIP loss's learnable bias).
 """
 
 from __future__ import annotations
@@ -20,8 +22,14 @@ from torch import nn
 from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from clip_mixer_tpu_torch.models.layers import LayerNorm
-from clip_mixer_tpu_torch.models.mixer import MixerTower, init_mixer_tower
-from clip_mixer_tpu_torch.models.towers import VisionEncoder, remat_policy, require_mixer, text_encoder
+from clip_mixer_tpu_torch.models.towers import (
+    VisionEncoder,
+    embed_text,
+    init_tower,
+    make_tower,
+    pool_text,
+    require_ported,
+)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -31,19 +39,22 @@ def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 class CLIP(nn.Module):
-    """Mixer CLIP with f32 master parameters, initialised from ``generator``
-    (a CPU ``torch.Generator``; seed 0 when omitted) and placed on ``device``
-    (``cuda`` when omitted; see ``device.resolve_device``)."""
+    """CLIP with mixer or transformer towers and f32 master parameters,
+    initialised from ``generator`` (a CPU ``torch.Generator``; seed 0 when
+    omitted) and placed on ``device`` (``cuda`` when omitted; see
+    ``device.resolve_device``)."""
 
     def __init__(self, cfg: CLIPConfig, device: DeviceLike = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        require_mixer(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         width = cfg.text_width
         self.visual = VisionEncoder(cfg)
         self.token_embedding = nn.Embedding(cfg.vocab_size, width)
-        self.transformer = MixerTower(width, cfg.context_length, cfg.text_layers, cfg.fused_mlp, remat_policy(cfg))
+        if cfg.use_transformer:
+            self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, width))
+        self.transformer = make_tower(cfg, text=True)
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init, dtype=torch.float32))
@@ -58,9 +69,11 @@ class CLIP(nn.Module):
         width = self.cfg.text_width
         self.token_embedding.weight.normal_(0.0, 0.02, generator=generator)
         self.text_projection.normal_(0.0, width**-0.5, generator=generator)
+        if self.cfg.use_transformer:
+            self.positional_embedding.normal_(0.0, 0.01, generator=generator)
         self.ln_final.weight.fill_(1.0)
         self.ln_final.bias.zero_()
-        init_mixer_tower(self.transformer, text_tower=True, generator=generator)
+        init_tower(self.transformer, text_tower=True, generator=generator)
         self.logit_scale.fill_(self.cfg.logit_scale_init)
         if self.cfg.logit_bias_init is not None:
             self.logit_bias.fill_(self.cfg.logit_bias_init)
@@ -73,8 +86,10 @@ class CLIP(nn.Module):
         return self.visual(images)
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
+        """text: int [B, context_length] -> [B, embed_dim], pooled at the EOT
+        token (the argmax id)."""
         dt = compute_dtype(self.cfg.compute_dtype)
-        return text_encoder(self.token_embedding, self.transformer, self.ln_final, self.text_projection, text, dt)
+        return pool_text(self, self.transformer(embed_text(self, text, dt)), text, dt)
 
     def forward(self, images: torch.Tensor, text: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         img = l2_normalize(self.encode_image(images))

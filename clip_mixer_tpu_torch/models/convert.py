@@ -3,14 +3,15 @@
 The tree is the JAX ``models.clip.init`` layout with numpy leaves: tower
 blocks stacked along a leading layer axis ``[L, ...]`` and linear kernels
 stored (in, out). :func:`jax_params_to_state_dict` maps it to the reference
-state-dict keys (the names the port's modules carry); :func:`load_jax_params`
-loads that into a :class:`~clip_mixer_tpu_torch.models.clip.CLIP` strictly.
-:func:`load_jax_mixer` fills a single block or tower from its JAX subtree;
-both go through the one per-block mapping, :func:`jax_block_arrays`.
-:func:`load_jax_qparams` builds the int8 towers of ``ops/quant.py`` from the
-JAX package's quantized tree (``quantize_vision_tower`` /
-``quantize_text_tower``), so both packages run the same int8 weights and
-scales.
+state-dict keys (the names the port's modules carry), for mixer and
+transformer towers; :func:`load_jax_params` loads that into a
+:class:`~clip_mixer_tpu_torch.models.clip.CLIP` strictly.
+:func:`load_jax_mixer` fills a single mixer block or tower from its JAX
+subtree; both go through the per-block mappings, :func:`jax_block_arrays`
+and :func:`jax_attn_block_arrays`. :func:`load_jax_qparams` builds the int8
+towers of ``ops/quant.py`` from the JAX package's quantized tree
+(``quantize_vision_tower`` / ``quantize_text_tower`` and their ViT
+counterparts), so both packages run the same int8 weights and scales.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, MixerTower
-from clip_mixer_tpu_torch.models.towers import require_mixer
+from clip_mixer_tpu_torch.models.towers import require_ported
 from clip_mixer_tpu_torch.ops.quant import QuantTextTower, QuantVisionTower
 
 
@@ -55,18 +56,42 @@ def jax_block_arrays(block: Mapping) -> Dict[str, np.ndarray]:
     }
 
 
+def jax_attn_block_arrays(block: Mapping) -> Dict[str, np.ndarray]:
+    """One unstacked JAX transformer block (``{"ln_1", "attn", "ln_2",
+    "mlp"}``) -> f32 arrays under a ``ResidualAttentionBlock``'s keys: the
+    packed ``qkv_kernel`` (W, 3W) becomes ``in_proj_weight`` (3W, W)."""
+    attn, mlp = block["attn"], block["mlp"]
+    return {
+        "ln_1.weight": _f32(block["ln_1"]["scale"]),
+        "ln_1.bias": _f32(block["ln_1"]["bias"]),
+        "attn.in_proj_weight": _f32(attn["qkv_kernel"]).T,
+        "attn.in_proj_bias": _f32(attn["qkv_bias"]),
+        "attn.out_proj.weight": _f32(attn["out_kernel"]).T,
+        "attn.out_proj.bias": _f32(attn["out_bias"]),
+        "ln_2.weight": _f32(block["ln_2"]["scale"]),
+        "ln_2.bias": _f32(block["ln_2"]["bias"]),
+        "mlp.c_fc.weight": _f32(mlp["w_in"]).T,
+        "mlp.c_fc.bias": _f32(mlp["b_in"]),
+        "mlp.c_proj.weight": _f32(mlp["w_out"]).T,
+        "mlp.c_proj.bias": _f32(mlp["b_out"]),
+    }
+
+
 def _layer(tree: Mapping, i: int) -> Dict:
     """Layer ``i`` of a tree of stacked ``[L, ...]`` leaves."""
     return {k: _layer(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in tree.items()}
 
 
 def _tower_arrays(tower: Mapping) -> Dict[str, np.ndarray]:
-    """A JAX tower ``{"blocks": stacked blocks}`` -> a :class:`MixerTower`'s keys."""
+    """A JAX tower ``{"blocks": stacked blocks}`` -> a :class:`MixerTower`'s
+    keys, or a ``TransformerTower``'s for transformer blocks."""
     blocks = tower["blocks"]
-    n_layers = np.asarray(blocks["ln_token"]["scale"]).shape[0]
-    return {
-        f"mixBlocks.{i}.{k}": v for i in range(n_layers) for k, v in jax_block_arrays(_layer(blocks, i)).items()
-    }
+    if "ln_1" in blocks:
+        prefix, arrays, ln = "resblocks", jax_attn_block_arrays, "ln_1"
+    else:
+        prefix, arrays, ln = "mixBlocks", jax_block_arrays, "ln_token"
+    n_layers = np.asarray(blocks[ln]["scale"]).shape[0]
+    return {f"{prefix}.{i}.{k}": v for i in range(n_layers) for k, v in arrays(_layer(blocks, i)).items()}
 
 
 def load_jax_mixer(module: Union[MixerBlock, MixerTower], tree: Mapping):
@@ -85,8 +110,10 @@ def load_jax_mixer(module: Union[MixerBlock, MixerTower], tree: Mapping):
 
 
 def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
-    """JAX mixer param tree (numpy leaves) -> reference-keyed state dict."""
-    require_mixer(cfg)
+    """JAX param tree (numpy leaves; mixer or transformer towers) ->
+    reference-keyed state dict: key for key and value for value the JAX
+    package's ``params_to_state_dict``."""
+    require_ported(cfg)
     sd: Dict[str, np.ndarray] = {}
 
     def put_ln(prefix, ln):
@@ -101,6 +128,8 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
     w = _f32(v["patch_embed"]["kernel"])  # [(ph pw c), W]
     sd["visual.conv1.weight"] = w.reshape(p, p, 3, cfg.vision_width).transpose(3, 2, 0, 1)
     sd["visual.class_embedding"] = _f32(v["class_embedding"])
+    if cfg.use_transformer:
+        sd["visual.positional_embedding"] = _f32(v["pos_embedding"])
     put_ln("visual.ln_pre", v["ln_pre"])
     put_tower("visual.transformer", v["tower"])
     put_ln("visual.ln_post", v["ln_post"])
@@ -108,6 +137,8 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
 
     t = tree["text"]
     sd["token_embedding.weight"] = _f32(t["token_embedding"])
+    if cfg.use_transformer:
+        sd["positional_embedding"] = _f32(t["pos_embedding"])
     put_tower("transformer", t["tower"])
     put_ln("ln_final", t["ln_final"])
     sd["text_projection"] = _f32(t["projection"])
@@ -130,34 +161,49 @@ def _copy_pack(q_out_in: torch.Tensor, scale: torch.Tensor, pack: Mapping) -> No
     scale.copy_(torch.from_numpy(_f32(pack["scale"])))
 
 
-def _load_quant_blocks(blocks, cm: Mapping) -> None:
-    """A JAX tower's stacked int8 channel mix into :class:`QuantMixerBlock`s;
-    the biases it carries must be the float model's."""
-    for i, block in enumerate(blocks):
-        for name, bias in (("in", block.b_in), ("out", block.b_out)):
-            if not np.array_equal(_f32(cm[f"b_{name}"])[i], bias.detach().cpu().numpy()):
+# (pack, bias attribute of the quant block, the JAX block subtree, its int8
+# pack key, its bias key) for each int8 product of a block
+_MIXER_PACKS = (("w_in", "b_in", "channel_mix", "w_in_q", "b_in"),
+                ("w_out", "b_out", "channel_mix", "w_out_q", "b_out"))
+_ATTN_PACKS = (("qkv", "qkv_bias", "attn", "qkv_q", "qkv_bias"),
+               ("out", "out_bias", "attn", "out_q", "out_bias"),
+               ("w_in", "b_in", "mlp", "w_in_q", "b_in"),
+               ("w_out", "b_out", "mlp", "w_out_q", "b_out"))
+
+
+def _load_quant_blocks(tower, tree_blocks: Mapping) -> None:
+    """A JAX tower's stacked int8 packs into ``tower``'s quant blocks (Mixer
+    or transformer); the biases the tree carries must be the float model's."""
+    packs = _ATTN_PACKS if tower.cfg.use_transformer else _MIXER_PACKS
+    for i, block in enumerate(tower.blocks):
+        for pack, bias_attr, sub, q_key, bias_key in packs:
+            bias = getattr(block, bias_attr)
+            if not np.array_equal(_f32(tree_blocks[sub][bias_key])[i], bias.detach().cpu().numpy()):
                 raise ValueError(
-                    f"block {i}: b_{name} differs from the model's; load the tree's float "
+                    f"block {i}: {bias_key} differs from the model's; load the tree's float "
                     "weights into the model first (load_jax_params)"
                 )
-            _copy_pack(getattr(block, f"w_{name}_q"), getattr(block, f"w_{name}_scale"), _layer(cm[f"w_{name}_q"], i))
+            _copy_pack(getattr(block, f"{pack}_q"), getattr(block, f"{pack}_scale"), _layer(tree_blocks[sub][q_key], i))
 
 
 @torch.no_grad()
 def load_jax_qparams(model, qtree: Mapping) -> Tuple[Optional[QuantVisionTower], Optional[QuantTextTower]]:
-    """The int8 towers of a JAX quantized tree (numpy leaves) on ``model``,
-    the port CLIP that holds the tree's float weights (``load_jax_params``):
-    ``(vision, text)``, each None where the tree's tower is not quantized.
-    The int8 weights, their scales and the activation scales (``a_scales``,
-    absent: dynamic) are the tree's."""
+    """The int8 towers of a JAX quantized tree (numpy leaves; Mixer or ViT)
+    on ``model``, the port CLIP that holds the tree's float weights
+    (``load_jax_params``): ``(vision, text)``, each None where the tree's
+    tower is not quantized. The int8 weights, their scales and the
+    activation scales (``a_scales``, absent: dynamic) are the tree's."""
+    require_ported(model.cfg)
     v, t = qtree["visual"], qtree["text"]
+    # the subtree and key of a block's first int8 pack, present when the text tower is quantized
+    first, q_key = ("attn", "qkv_q") if model.cfg.use_transformer else ("channel_mix", "w_in_q")
     vision = text = None
     if "kernel_q" in v["patch_embed"]:
         vision = QuantVisionTower(model.visual, v.get("a_scales"))
         _copy_pack(vision.patch_q, vision.patch_scale, v["patch_embed"]["kernel_q"])
         vision.set_planar()
-        _load_quant_blocks(vision.blocks, v["tower"]["blocks"]["channel_mix"])
-    if "w_in_q" in t["tower"]["blocks"]["channel_mix"]:
+        _load_quant_blocks(vision, v["tower"]["blocks"])
+    if q_key in t["tower"]["blocks"][first]:
         text = QuantTextTower(model, t.get("a_scales"))
-        _load_quant_blocks(text.blocks, t["tower"]["blocks"]["channel_mix"])
+        _load_quant_blocks(text, t["tower"]["blocks"])
     return vision, text

@@ -155,6 +155,12 @@ def _remat_contexts(names):
     return forward, _replaying(recompute)
 
 
+def remat_context_fn(remat_policy: Optional[str]):
+    """``checkpoint``'s ``context_fn`` for a ``REMAT_KEEPS`` policy name;
+    None (no remat) for None."""
+    return None if remat_policy is None else functools.partial(_remat_contexts, REMAT_KEEPS[remat_policy])
+
+
 class MixerTower(nn.Module):
     """``n_layers`` blocks applied in order to x [B, T, W]; with
     ``remat_policy`` (a ``REMAT_KEEPS`` name; None = no remat) each block is
@@ -164,8 +170,7 @@ class MixerTower(nn.Module):
                  remat_policy: Optional[str] = None):
         super().__init__()
         self.mixBlocks = nn.ModuleList(MixerBlock(width, tokens, fused_mlp) for _ in range(n_layers))
-        self.remat_contexts = (None if remat_policy is None
-                               else functools.partial(_remat_contexts, REMAT_KEEPS[remat_policy]))
+        self.remat_contexts = remat_context_fn(remat_policy)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         remat = self.remat_contexts is not None and torch.is_grad_enabled()

@@ -301,8 +301,11 @@ def mixer_tower_fused(tower, x: torch.Tensor) -> torch.Tensor:
 def route_towers(model, fused: bool) -> None:
     """Bind (``fused``) or unbind both of a CLIP model's towers' ``forward``
     to :func:`mixer_tower_fused`: the fused-block route. The model's
-    state-dict keys and config do not change."""
+    state-dict keys and config do not change; transformer towers keep their
+    own chain."""
     for tower in (model.visual.transformer, model.transformer):
+        if not hasattr(tower, "mixBlocks"):
+            continue
         if fused:
             tower.forward = functools.partial(mixer_tower_fused, tower)
         elif "forward" in vars(tower):

@@ -1,20 +1,23 @@
-"""int8 (W8A8) serving path for the Mixer towers.
+"""int8 (W8A8) serving path for the Mixer and transformer (ViT) towers.
 
-Counterpart of the Mixer part of ``clip_mixer_tpu/ops/quant.py``. The
-FLOPs-heavy products, the patch embed and both channel-mix linears of every
-block, run int8 x int8 -> int32 (``torch._int_mm``) with symmetric
-per-output-channel weight scales. The token mixes, the LayerNorms, the
-residuals and both final projections stay in the compute dtype, as in the
-JAX package: the projections are a sliver of the FLOPs but carry much of the
-int8 feature error.
+Counterpart of ``clip_mixer_tpu/ops/quant.py`` without its ResNet part. The
+FLOPs-heavy products run int8 x int8 -> int32 (``torch._int_mm``) with
+symmetric per-output-channel weight scales: the patch embed, and in every
+block both channel-mix linears (Mixer) or the QKV, attention-out and both
+MLP products (transformer). The token mixes, the scores and softmax, the
+LayerNorms, the residuals and both final projections stay in the compute
+dtype, as in the JAX package: the projections are a sliver of the FLOPs but
+carry much of the int8 feature error.
 
-Activation scales are static (calibrated: :func:`calibrate_vision_tower` and
-:func:`calibrate_text_tower` measure the 0.9999 quantile of |activation| at
-each quantisation site on sample inputs) or, without them, dynamic (per-row
-max). The quantised towers are modules, :class:`QuantVisionTower` and
-:class:`QuantTextTower`, that hold the int8 weights, the f32 weight scales
-and the activation scales as buffers and share the float model's token
-mixes, LayerNorms, embeddings and projections by reference.
+Activation scales are static (calibrated: ``calibrate_*`` measure the 0.9999
+quantile of |activation| at each quantisation site on sample inputs) or,
+without them, dynamic (per-row max). The quantised towers are modules,
+:class:`QuantVisionTower` and :class:`QuantTextTower`, that hold the int8
+weights, the f32 weight scales and the activation scales as buffers and
+share the float model's token mixes, LayerNorms, biases, embeddings and
+projections by reference; their blocks are :class:`QuantMixerBlock` or
+:class:`QuantAttentionBlock` after the float tower's kind, so
+:func:`encode_image_q` and :func:`encode_text_q` serve both kinds.
 
 Rounding follows the JAX package: quantisation divides by the scale (no
 reciprocal), rounds half to even, clips to [-127, 127]; the int32
@@ -23,8 +26,9 @@ weight scale, and is cast to the compute dtype before a bias is added.
 
 Weights are stored ``[out, in]`` (``nn.Linear``'s layout) and handed to
 ``torch._int_mm`` as the transposed view, the layout it runs fastest on the
-H100. On CUDA ``_int_mm`` wants more than 16 rows and K, N multiples of 8,
-which every Mixer-B/32 shape meets.
+H100. On CUDA ``_int_mm`` wants more than 16 rows and K, N multiples of 8;
+a K that is not (ViT-L/14's patch, 588) is padded with zero columns, which
+add nothing to the integer sums.
 
 The planar front end (:func:`make_planar_front_end`) takes uint8 NHWC at a
 source resolution to the int8 c-major patches the vision tower's int8 patch
@@ -32,12 +36,14 @@ embed reads (:func:`encode_image_q_patches`): the resize of
 ``ops/preprocess.py`` as two products over channel planes, then normalise,
 quantise and patchify in int8.
 
-Transformer and ResNet towers have no int8 path here yet (ROADMAP.md,
-Slice D).
+The planar front end serves Mixer towers only, as in the JAX package; a ViT
+int8 engine takes the float front end. ResNet towers have no int8 path here
+yet (ROADMAP.md, Slice D, Queue 1 item 14).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -48,7 +54,8 @@ from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import compute_dtype
 from clip_mixer_tpu_torch.models.layers import layer_norm, quick_gelu, token_mix_branch
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, token_mix
-from clip_mixer_tpu_torch.models.towers import patchify
+from clip_mixer_tpu_torch.models.towers import embed_patches, embed_text, patchify, pool_text
+from clip_mixer_tpu_torch.models.transformer import ResidualAttentionBlock, attention_core
 
 QMAX = 127.0
 
@@ -92,7 +99,11 @@ def int8_matmul(
     x32 = x.reshape(-1, k).float()
     if x_scale is None:
         x_scale = torch.clamp_min(true_div(x32.abs().amax(dim=-1, keepdim=True), QMAX), 1e-8)
-    acc = torch._int_mm(quantize_activation(x32, x_scale), wq["q"])
+    xq, w = quantize_activation(x32, x_scale), wq["q"]
+    if k % 8:  # _int_mm's K on CUDA; the padded [out, in] keeps w a transposed view
+        xq = nn.functional.pad(xq, (0, -k % 8))
+        w = nn.functional.pad(w.t(), (0, -k % 8)).t()
+    acc = torch._int_mm(xq, w)
     out = (acc.float() * x_scale * wq["scale"]).to(out_dtype)
     return out.reshape(*lead, out.shape[-1])
 
@@ -181,48 +192,94 @@ class QuantMixerBlock(nn.Module):
         return x + int8_matmul(h, self.wq("w_out"), s_hidden, dt) + self.b_out.to(dt)
 
 
+class QuantAttentionBlock(nn.Module):
+    """A ``ResidualAttentionBlock`` with its QKV, attention-out and both MLP
+    products in int8; the LayerNorms are the float block's modules, the
+    biases its parameters, and ``mask`` its tower's (None: unmasked)."""
+
+    def __init__(self, block: ResidualAttentionBlock, mask: Optional[torch.Tensor]):
+        super().__init__()
+        self.n_heads = block.n_heads
+        self.ln_1, self.ln_2 = block.ln_1, block.ln_2
+        attn, mlp = block.attn, block.mlp
+        self.qkv_bias, self.out_bias = attn.in_proj_bias, attn.out_proj.bias
+        self.b_in, self.b_out = mlp.c_fc.bias, mlp.c_proj.bias
+        for name, w in (("qkv", attn.in_proj_weight), ("out", attn.out_proj.weight), ("w_in", mlp.c_fc.weight),
+                        ("w_out", mlp.c_proj.weight)):
+            _register_pack(self, name, w.t())
+        self.register_buffer("mask", mask, persistent=False)
+
+    wq = QuantMixerBlock.wq
+
+    def forward(self, x: torch.Tensor, s_qkv=None, s_attn_out=None, s_in=None, s_hidden=None) -> torch.Tensor:
+        dt = x.dtype
+        y = layer_norm(x, self.ln_1.weight, self.ln_1.bias)
+        qkv = int8_matmul(y, self.wq("qkv"), s_qkv, dt) + self.qkv_bias.to(dt)
+        out = attention_core(qkv, self.n_heads, self.mask)
+        x = x + int8_matmul(out, self.wq("out"), s_attn_out, dt) + self.out_bias.to(dt)
+        y = layer_norm(x, self.ln_2.weight, self.ln_2.bias)
+        h = quick_gelu(int8_matmul(y, self.wq("w_in"), s_in, dt) + self.b_in.to(dt))
+        return x + int8_matmul(h, self.wq("w_out"), s_hidden, dt) + self.b_out.to(dt)
+
+
+# Each block's activation-scale sites, in the order its forward takes them.
+MIXER_SITES = ("ch_in", "ch_hidden")
+ATTN_SITES = ("qkv_in", "attn_out_in", "mlp_in", "mlp_hidden")
+
+
 class _QuantTower(nn.Module):
-    """What both quantised towers share: the int8 blocks and the per-layer
-    activation scales (buffers ``a_ch_in`` / ``a_ch_hidden`` [L], absent
-    for dynamic scales)."""
+    """What both quantised towers share: the int8 blocks of the float
+    ``tower`` (a Mixer or a transformer tower) and the activation scales
+    (buffers ``a_<site>``: ``[L]`` for each block site, ``()`` for a tower
+    site such as ``patch``; absent for dynamic scales)."""
 
-    SITES = ("ch_in", "ch_hidden")
+    TOWER_SITES: tuple = ()
 
-    def _init_blocks(self, cfg: CLIPConfig, blocks, a_scales: Optional[Mapping], device) -> None:
+    def _init_blocks(self, cfg: CLIPConfig, tower, a_scales: Optional[Mapping], device) -> None:
         self.cfg = cfg
-        self.blocks = nn.ModuleList(QuantMixerBlock(b) for b in blocks)
-        scales = _as_scales(a_scales, self.SITES, device)
+        if cfg.use_transformer:
+            self.layer_sites = ATTN_SITES
+            self.blocks = nn.ModuleList(QuantAttentionBlock(b, tower.attn_mask) for b in tower.resblocks)
+        else:
+            self.layer_sites = MIXER_SITES
+            self.blocks = nn.ModuleList(QuantMixerBlock(b) for b in tower.mixBlocks)
+        self.sites = self.TOWER_SITES + self.layer_sites
+        scales = _as_scales(a_scales, self.sites, device)
         self.static = scales is not None
-        for k in self.SITES:
+        for k in self.sites:
             self.register_buffer(f"a_{k}", None if scales is None else scales[k])
 
     def a_scales(self) -> Optional[Dict[str, torch.Tensor]]:
         """The activation scales under the JAX package's keys (None: dynamic)."""
         if not self.static:
             return None
-        return {k: getattr(self, f"a_{k}") for k in self.SITES}
+        return {k: getattr(self, f"a_{k}") for k in self.sites}
+
+    def layer_scales(self, i: int) -> list:
+        """Block ``i``'s static scales in its forward's order ([]: dynamic)."""
+        return [getattr(self, f"a_{k}")[i] for k in self.layer_sites] if self.static else []
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         for i, block in enumerate(self.blocks):
-            if self.static:
-                x = block(x, self.a_ch_in[i], self.a_ch_hidden[i])
-            else:
-                x = block(x)
+            x = block(x, *self.layer_scales(i))
         return x
 
 
 class QuantVisionTower(_QuantTower):
-    """The Mixer vision tower with an int8 patch embed and int8 channel
-    mixes. ``a_scales``: ``{"patch": (), "ch_in": [L], "ch_hidden": [L]}``
-    from :func:`calibrate_vision_tower` (None: dynamic scales)."""
+    """The vision tower with an int8 patch embed and int8 blocks.
+    ``a_scales``: ``{"patch": (), <each block site>: [L]}`` from
+    :func:`calibrate_vision_tower` or :func:`calibrate_vit_vision_tower`
+    (None: dynamic scales)."""
 
-    SITES = ("patch", "ch_in", "ch_hidden")
+    TOWER_SITES = ("patch",)
 
     def __init__(self, visual, a_scales: Optional[Mapping] = None):
         super().__init__()
         device = visual.proj.device
-        self._init_blocks(visual.cfg, visual.transformer.mixBlocks, a_scales, device)
+        self._init_blocks(visual.cfg, visual.transformer, a_scales, device)
         self.class_embedding = visual.class_embedding
+        if visual.cfg.use_transformer:
+            self.positional_embedding = visual.positional_embedding
         self.ln_pre = visual.ln_pre
         self.ln_post = visual.ln_post
         self.proj = visual.proj  # compute dtype by design
@@ -237,12 +294,11 @@ class QuantVisionTower(_QuantTower):
         self.patch_q_planar = self.patch_q[:, perm].contiguous()
 
     def tail(self, x: torch.Tensor) -> torch.Tensor:
-        """After the patch embed: CLS, ln_pre, the int8 blocks, ln_post on
-        CLS, the projection. x: [B, tokens - 1, width] in the compute dtype."""
+        """After the patch embed: CLS (+ positional embedding), ln_pre, the
+        int8 blocks, ln_post on CLS, the projection. x: [B, tokens - 1,
+        width] in the compute dtype."""
         dt = x.dtype
-        cls = self.class_embedding.to(dt).expand(x.shape[0], 1, x.shape[-1])
-        x = self.ln_pre(torch.cat([cls, x], dim=1))
-        x = self.run_blocks(x)
+        x = self.run_blocks(embed_patches(self, x))
         x = self.ln_post(x[:, 0, :])
         return x @ self.proj.to(dt)
 
@@ -251,14 +307,17 @@ class QuantVisionTower(_QuantTower):
 
 
 class QuantTextTower(_QuantTower):
-    """The Mixer text tower with int8 channel mixes; the token embedding is
-    a lookup and the projection stays in the compute dtype. ``a_scales``:
-    ``{"ch_in": [L], "ch_hidden": [L]}`` from :func:`calibrate_text_tower`."""
+    """The text tower with int8 blocks; the token (and positional)
+    embeddings are lookups and the projection stays in the compute dtype.
+    ``a_scales``: ``{<each block site>: [L]}`` from
+    :func:`calibrate_text_tower` or :func:`calibrate_vit_text_tower`."""
 
     def __init__(self, model, a_scales: Optional[Mapping] = None):
         super().__init__()
-        self._init_blocks(model.cfg, model.transformer.mixBlocks, a_scales, model.device)
+        self._init_blocks(model.cfg, model.transformer, a_scales, model.device)
         self.token_embedding = model.token_embedding
+        if model.cfg.use_transformer:
+            self.positional_embedding = model.positional_embedding
         self.ln_final = model.ln_final
         self.text_projection = model.text_projection
 
@@ -266,22 +325,39 @@ class QuantTextTower(_QuantTower):
         return encode_text_q(self, text)
 
 
-def _require_mixer_quant(cfg: CLIPConfig) -> None:
-    if cfg.is_resnet or cfg.use_transformer:
+def _require_tower(cfg: CLIPConfig, transformer: bool) -> None:
+    """Raise unless ``cfg``'s towers are of the kind a function serves."""
+    if cfg.is_resnet:
         raise NotImplementedError(
-            "the int8 path of transformer and ResNet towers is not ported yet (ROADMAP.md, Slice D)"
+            "the int8 path of the ResNet tower is not ported yet (ROADMAP.md, Slice D, Queue 1 item 14)"
         )
+    if cfg.use_transformer != transformer:
+        kind = "transformer" if transformer else "Mixer"
+        raise ValueError(f"this int8 function serves {kind} towers; use image_quant_fns / text_quant_fns")
 
 
 def quantize_vision_tower(model, a_scales: Optional[Mapping] = None) -> QuantVisionTower:
-    """int8 copy of ``model``'s (a port CLIP) vision tower."""
-    _require_mixer_quant(model.cfg)
+    """int8 copy of ``model``'s (a port CLIP) Mixer vision tower."""
+    _require_tower(model.cfg, transformer=False)
     return QuantVisionTower(model.visual, a_scales)
 
 
 def quantize_text_tower(model, a_scales: Optional[Mapping] = None) -> QuantTextTower:
-    """int8 copy of ``model``'s text tower."""
-    _require_mixer_quant(model.cfg)
+    """int8 copy of ``model``'s Mixer text tower."""
+    _require_tower(model.cfg, transformer=False)
+    return QuantTextTower(model, a_scales)
+
+
+def quantize_vit_vision_tower(model, a_scales: Optional[Mapping] = None) -> QuantVisionTower:
+    """int8 copy of ``model``'s ViT vision tower: the patch embed and the
+    QKV, attention-out and MLP products of every block."""
+    _require_tower(model.cfg, transformer=True)
+    return QuantVisionTower(model.visual, a_scales)
+
+
+def quantize_vit_text_tower(model, a_scales: Optional[Mapping] = None) -> QuantTextTower:
+    """int8 copy of ``model``'s causally masked transformer text tower."""
+    _require_tower(model.cfg, transformer=True)
     return QuantTextTower(model, a_scales)
 
 
@@ -301,59 +377,103 @@ def encode_text_q(qtext: QuantTextTower, text: torch.Tensor) -> torch.Tensor:
     """int8 counterpart of the text encoder. text: int [B, context_length];
     pooled at the EOT token (the argmax id)."""
     dt = compute_dtype(qtext.cfg.compute_dtype)
-    x = qtext.token_embedding.weight[text.long()].to(dt)
-    x = qtext.run_blocks(x)
-    x = qtext.ln_final(x).to(dt)
-    eot = text.argmax(dim=-1)
-    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-    return pooled @ qtext.text_projection.to(dt)
+    return pool_text(qtext, qtext.run_blocks(embed_text(qtext, text, dt)), text, dt)
+
+
+# The quant modules carry their blocks' kind, so one encoder serves both;
+# these are the JAX package's ViT names for them.
+encode_image_vit_q = encode_image_q
+encode_text_vit_q = encode_text_q
 
 
 def _channel_sites(block: MixerBlock, h: torch.Tensor, q: float):
-    """One float block as the JAX calibration runs it: (its output, the
-    ch_in and ch_hidden site scales)."""
+    """One float Mixer block as the JAX calibration runs it: (its output,
+    the ch_in and ch_hidden site scales)."""
     dt = h.dtype
     cm, ln2 = block.channel_mix_seq, block.layerNorm2
     h = h + token_mix(block, h)
     y = layer_norm(h, ln2.weight, ln2.bias)
     hidden = quick_gelu(y @ cm.lin3.weight.to(dt).t() + cm.lin3.bias.to(dt))
     out = h + hidden @ cm.lin4.weight.to(dt).t() + cm.lin4.bias.to(dt)
-    return out, _site_scale(y, q), _site_scale(hidden, q)
+    return out, (_site_scale(y, q), _site_scale(hidden, q))
 
 
-def _tower_sites(blocks, x: torch.Tensor, q: float) -> Dict[str, torch.Tensor]:
-    s_in, s_hidden = [], []
+def _attention_sites(block: ResidualAttentionBlock, h: torch.Tensor, q: float, mask: Optional[torch.Tensor]):
+    """One float transformer block as the JAX calibration runs it: (its
+    output, the qkv_in, attn_out_in, mlp_in and mlp_hidden site scales)."""
+    dt = h.dtype
+    attn, mlp = block.attn, block.mlp
+    y1 = layer_norm(h, block.ln_1.weight, block.ln_1.bias)
+    qkv = y1 @ attn.in_proj_weight.to(dt).t() + attn.in_proj_bias.to(dt)
+    ao = attention_core(qkv, block.n_heads, mask)  # the attn_out_in site
+    h = h + ao @ attn.out_proj.weight.to(dt).t() + attn.out_proj.bias.to(dt)
+    y2 = layer_norm(h, block.ln_2.weight, block.ln_2.bias)
+    hidden = quick_gelu(y2 @ mlp.c_fc.weight.to(dt).t() + mlp.c_fc.bias.to(dt))
+    out = h + hidden @ mlp.c_proj.weight.to(dt).t() + mlp.c_proj.bias.to(dt)
+    return out, tuple(_site_scale(a, q) for a in (y1, ao, y2, hidden))
+
+
+def _tower_sites(cfg: CLIPConfig, tower, x: torch.Tensor, q: float) -> Dict[str, torch.Tensor]:
+    """Every block site's scale [L] over the float ``tower`` fed ``x``."""
+    if cfg.use_transformer:
+        sites, blocks = ATTN_SITES, tower.resblocks
+        step = functools.partial(_attention_sites, mask=tower.attn_mask)
+    else:
+        sites, blocks, step = MIXER_SITES, tower.mixBlocks, _channel_sites
+    per_site = [[] for _ in sites]
     for block in blocks:
-        x, a, b = _channel_sites(block, x, q)
-        s_in.append(a)
-        s_hidden.append(b)
-    return {"ch_in": torch.stack(s_in), "ch_hidden": torch.stack(s_hidden)}
+        x, scales = step(block, x, q)
+        for col, scale in zip(per_site, scales):
+            col.append(scale)
+    return {k: torch.stack(col) for k, col in zip(sites, per_site)}
+
+
+def _calibrate_vision(model, sample_images: torch.Tensor, q: float) -> Dict[str, torch.Tensor]:
+    v, cfg = model.visual, model.cfg
+    dt = compute_dtype(cfg.compute_dtype)
+    x = patchify(sample_images.to(dt), cfg.vision_patch_size)
+    s_patch = _site_scale(x, q)
+    x = embed_patches(v, x @ v.patch_kernel().to(dt))
+    return {"patch": s_patch, **_tower_sites(cfg, v.transformer, x, q)}
+
+
+def _calibrate_text(model, sample_text: torch.Tensor, q: float) -> Dict[str, torch.Tensor]:
+    dt = compute_dtype(model.cfg.compute_dtype)
+    return _tower_sites(model.cfg, model.transformer, embed_text(model, sample_text, dt), q)
 
 
 @torch.no_grad()
 def calibrate_vision_tower(model, sample_images: torch.Tensor, quantile: float = 0.9999) -> Dict[str, torch.Tensor]:
-    """Static activation scales of the vision tower from sample (normalised)
-    images: ``{"patch": (), "ch_in": [L], "ch_hidden": [L]}``, each site's
-    |activation| ``quantile`` over 127."""
-    _require_mixer_quant(model.cfg)
-    v, cfg = model.visual, model.cfg
-    dt = compute_dtype(cfg.compute_dtype)
-    x = patchify(sample_images.to(dt), cfg.vision_patch_size)
-    s_patch = _site_scale(x, quantile)
-    x = x @ v.patch_kernel().to(dt)
-    cls = v.class_embedding.to(dt).expand(x.shape[0], 1, x.shape[-1])
-    x = v.ln_pre(torch.cat([cls, x], dim=1))
-    return {"patch": s_patch, **_tower_sites(v.transformer.mixBlocks, x, quantile)}
+    """Static activation scales of the Mixer vision tower from sample
+    (normalised) images: ``{"patch": (), "ch_in": [L], "ch_hidden": [L]}``,
+    each site's |activation| ``quantile`` over 127."""
+    _require_tower(model.cfg, transformer=False)
+    return _calibrate_vision(model, sample_images, quantile)
 
 
 @torch.no_grad()
 def calibrate_text_tower(model, sample_text: torch.Tensor, quantile: float = 0.9999) -> Dict[str, torch.Tensor]:
-    """Static activation scales of the text tower from sample token ids:
-    ``{"ch_in": [L], "ch_hidden": [L]}``."""
-    _require_mixer_quant(model.cfg)
-    dt = compute_dtype(model.cfg.compute_dtype)
-    x = model.token_embedding.weight[sample_text.long()].to(dt)
-    return _tower_sites(model.transformer.mixBlocks, x, quantile)
+    """Static activation scales of the Mixer text tower from sample token
+    ids: ``{"ch_in": [L], "ch_hidden": [L]}``."""
+    _require_tower(model.cfg, transformer=False)
+    return _calibrate_text(model, sample_text, quantile)
+
+
+@torch.no_grad()
+def calibrate_vit_vision_tower(model, sample_images: torch.Tensor,
+                               quantile: float = 0.9999) -> Dict[str, torch.Tensor]:
+    """Static activation scales of the ViT vision tower: ``{"patch": (),
+    "qkv_in", "attn_out_in", "mlp_in", "mlp_hidden": [L]}``."""
+    _require_tower(model.cfg, transformer=True)
+    return _calibrate_vision(model, sample_images, quantile)
+
+
+@torch.no_grad()
+def calibrate_vit_text_tower(model, sample_text: torch.Tensor, quantile: float = 0.9999) -> Dict[str, torch.Tensor]:
+    """Static activation scales of the transformer text tower (causal mask):
+    ``{"qkv_in", "attn_out_in", "mlp_in", "mlp_hidden": [L]}``."""
+    _require_tower(model.cfg, transformer=True)
+    return _calibrate_text(model, sample_text, quantile)
 
 
 # ---- the planar front end ----------------------------------------------------
@@ -431,11 +551,15 @@ def image_quant_fns(cfg: CLIPConfig):
     """(calibrate, quantize, encode_q) for ``cfg``'s vision tower: the one
     dispatch the gates (``evals/quant_gate.py``) and
     ``InferenceEngine.enable_int8`` share."""
-    _require_mixer_quant(cfg)
+    _require_tower(cfg, cfg.use_transformer)
+    if cfg.use_transformer:
+        return calibrate_vit_vision_tower, quantize_vit_vision_tower, encode_image_vit_q
     return calibrate_vision_tower, quantize_vision_tower, encode_image_q
 
 
 def text_quant_fns(cfg: CLIPConfig):
     """(calibrate, quantize, encode_q) for ``cfg``'s text tower."""
-    _require_mixer_quant(cfg)
+    _require_tower(cfg, cfg.use_transformer)
+    if cfg.use_transformer:
+        return calibrate_vit_text_tower, quantize_vit_text_tower, encode_text_vit_q
     return calibrate_text_tower, quantize_text_tower, encode_text_q

@@ -57,9 +57,10 @@ def encoder_fns(cfg: CLIPConfig, int8: bool = False, input_hw=None):
 
     The image side takes uint8 NHWC: model-sized when ``input_hw`` is None
     (normalised only), else at ``input_hw`` and resized on the device by the
-    ``"torch"`` preprocess. An int8 engine with ``input_hw`` takes the planar
-    front end instead (resize -> int8 patches at the tower's calibrated
-    patch scale)."""
+    ``"torch"`` preprocess. An int8 engine of Mixer towers with ``input_hw``
+    takes the planar front end instead (resize -> int8 patches at the
+    tower's calibrated patch scale); a ViT int8 engine keeps the float
+    front end, as the JAX package's."""
     dt = compute_dtype(cfg.compute_dtype)
     if input_hw is None:
         def to_model_inputs(images_u8):
@@ -78,7 +79,7 @@ def encoder_fns(cfg: CLIPConfig, int8: bool = False, input_hw=None):
 
     encode_image = image_quant_fns(cfg)[2]
     encode_text = text_quant_fns(cfg)[2]
-    if input_hw is not None:
+    if input_hw is not None and not cfg.use_transformer:
         front = make_planar_front_end(cfg, tuple(input_hw))
 
         def image_fn(qvis, images_u8):
@@ -167,7 +168,7 @@ class InferenceEngine:
         save_calibration: Optional[str] = None,
     ) -> None:
         """Switch each tower that has activation scales to the calibrated
-        W8A8 path (``ops/quant.py``; Mixer towers).
+        W8A8 path (``ops/quant.py``; Mixer or ViT towers).
 
         Scales come from ``calibration``, a ``.npz`` artifact written by
         ``save_calibration=`` here or by the JAX package (its architecture

@@ -31,8 +31,9 @@ from clip_mixer_tpu_torch.config import TrainConfig
 from clip_mixer_tpu_torch.train.schedule import warmup_cosine
 
 # The text tower's parameters sit on the CLIP module itself (the reference
-# state-dict layout); these prefixes name them.
-TEXT_PREFIXES = ("token_embedding.", "transformer.", "ln_final.", "text_projection")
+# state-dict layout); these prefixes name them (``positional_embedding``:
+# the transformer text tower's, under the JAX tree's "text").
+TEXT_PREFIXES = ("token_embedding.", "positional_embedding", "transformer.", "ln_final.", "text_projection")
 
 
 def tower_of(name: str) -> Optional[str]:

@@ -424,3 +424,77 @@ def test_device_bank_on_the_card_matches_the_host(cuda):
     assert isinstance(engine._index[0], torch.Tensor) and engine._index[0].is_cuda
     dev = engine.retrieve(texts, top_k=5)
     assert [[r["id"] for r in row] for row in dev] == [[r["id"] for r in row] for row in host]
+
+
+# ---- the transformer (ViT) towers ---------------------------------------------------
+
+
+def _vit_model(device, dtype="float32", patch=16, res=64):
+    from clip_mixer_tpu_torch import CLIP, CLIPConfig
+
+    cfg = CLIPConfig(embed_dim=32, image_resolution=res, vision_layers=2, vision_width=128, vision_patch_size=patch,
+                     context_length=77, vocab_size=49408, text_width=128, text_heads=2, text_layers=2,
+                     tower="transformer", compute_dtype=dtype)
+    return CLIP(cfg, device=device, generator=torch.Generator().manual_seed(5)).eval()
+
+
+def _vit_inputs():
+    from clip_mixer_tpu_torch.evals.quant_gate import synthetic_images
+    from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+
+    images = normalize_images(torch.from_numpy(synthetic_images(8, 64, seed=2)), dtype=torch.float32)
+    text = torch.from_numpy(np.random.default_rng(4).integers(1, 49407, (8, 77)).astype(np.int32))
+    for i in range(8):
+        text[i, 5 + 9 * i] = 49407
+    return images, text
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vit_towers_on_the_card_match_the_cpu(cuda, dtype):
+    """The same weights and inputs on both devices, TF32 off: per-row cosine
+    >= 0.99999 in f32; >= 0.999 in bf16 (sums in other orders)."""
+    images, text = _vit_inputs()
+    cpu, card = _vit_model("cpu", dtype), _vit_model(cuda, dtype)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            pairs = ((card.encode_image(images.to(cuda)), cpu.encode_image(images)),
+                     (card.encode_text(text.to(cuda)), cpu.encode_text(text)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for got, want in pairs:
+        cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want.float(), dim=-1)
+        assert float(cos.min()) >= (0.99999 if dtype == "float32" else 0.999), float(cos.min())
+
+
+def test_vit_text_on_the_card_ignores_tokens_after_eot(cuda):
+    _, text = _vit_inputs()
+    changed = text.clone()
+    changed[0, 20:] = 7  # the first caption's eot is at 5
+    for dtype in ("float32", "bfloat16"):
+        model = _vit_model(cuda, dtype)
+        with torch.inference_mode():
+            assert torch.equal(model.encode_text(text.to(cuda))[0], model.encode_text(changed.to(cuda))[0])
+
+
+@pytest.mark.parametrize("patch", [16, 14], ids=["patch16", "patch14_k588"])
+def test_vit_int8_encoders_on_the_card_match_the_cpu(cuda, patch):
+    """bf16 on both devices, the same int8 weights and scales: per-row
+    cosine >= 0.999. Patch 14 gives the patch embed K = 588, which the
+    int8 product pads to a multiple of 8 on the card."""
+    from clip_mixer_tpu_torch.ops import quant as tq
+
+    images, text = _vit_inputs()
+    res = 56 if patch == 14 else 64
+    images = images[:, :res, :res].contiguous().to(torch.bfloat16)
+    cpu, card = _vit_model("cpu", "bfloat16", patch, res), _vit_model(cuda, "bfloat16", patch, res)
+    scales, t_scales = tq.calibrate_vit_vision_tower(cpu, images), tq.calibrate_vit_text_tower(cpu, text)
+    qv, qt = tq.quantize_vit_vision_tower(card, scales), tq.quantize_vit_text_tower(card, t_scales)
+    qv_cpu, qt_cpu = tq.quantize_vit_vision_tower(cpu, scales), tq.quantize_vit_text_tower(cpu, t_scales)
+    for name, buf in qv.named_buffers():
+        torch.testing.assert_close(buf.cpu(), dict(qv_cpu.named_buffers())[name], rtol=0, atol=0)
+    for got, want in ((tq.encode_image_q(qv, images.to(cuda)), tq.encode_image_q(qv_cpu, images)),
+                      (tq.encode_text_q(qt, text.to(cuda)), tq.encode_text_q(qt_cpu, text))):
+        cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want.float(), dim=-1)
+        assert float(cos.min()) >= 0.999, float(cos.min())

@@ -267,7 +267,19 @@ def test_init_distributions_match_jax_per_tensor():
     assert abs(float(w4.std()) - 128**-0.5 * 4**-0.5) <= 0.02 * 128**-0.5 * 4**-0.5
 
 
+# every transformer preset, full size, with its parameter count (OpenAI's
+# ViT-B/32 and ViT-L/14 have these too)
+TRANSFORMER_PRESETS = {"transformer-b32": 151_277_313, "vit-b32": 151_277_313, "vit-b16": 149_620_737,
+                       "vit-l14": 427_616_513, "vit-l14-336": 427_944_193}
+
+
 def test_transformer_and_resnet_configs_raise():
-    for name in ("vit-b32", "rn50"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CLIP(tcfg.PRESETS[name], device="cpu")
+    """Since the transformer towers are ported, only the ResNet tower raises
+    (naming its slice); every transformer preset builds at full size."""
+    with pytest.raises(NotImplementedError, match="Slice D"):
+        CLIP(tcfg.PRESETS["rn50"], device="cpu")
+    for name, n_params in TRANSFORMER_PRESETS.items():
+        model = CLIP(tcfg.PRESETS[name], device="cpu")
+        assert sum(p.numel() for p in model.parameters()) == n_params, name
+        assert len(model.visual.transformer.resblocks) == tcfg.PRESETS[name].vision_layers
+        del model

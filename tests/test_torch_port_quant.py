@@ -248,10 +248,17 @@ def test_quant_towers_share_the_float_modules():
 @pytest.mark.parametrize("tower,layers", [("transformer", 2), ("transformer", (1, 1, 1, 1))],
                          ids=["transformer", "resnet"])
 def test_other_towers_raise_naming_slice_d(tower, layers):
+    """The ResNet tower's int8 path still raises, naming its slice; since the
+    ViT half is ported, a transformer config dispatches to it, as the JAX
+    package's ``image_quant_fns`` / ``text_quant_fns`` do."""
     cfg = CLIPConfig(**dict(CFG, tower=tower, vision_layers=layers))
-    for fns in (tq.image_quant_fns, tq.text_quant_fns):
-        with pytest.raises(NotImplementedError, match="Slice D"):
-            fns(cfg)
+    jc = JaxConfig(**dict(CFG, tower=tower, vision_layers=layers))
+    for fns, jfns in ((tq.image_quant_fns, jq.image_quant_fns), (tq.text_quant_fns, jq.text_quant_fns)):
+        if cfg.is_resnet:
+            with pytest.raises(NotImplementedError, match="Slice D"):
+                fns(cfg)
+        else:
+            assert fns(cfg) == tuple(getattr(tq, f.__name__) for f in jfns(jc))
 
 
 # ---- the planar front end ----------------------------------------------------
