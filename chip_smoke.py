@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, trainer, int8 serving and transformer (ViT) paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths
+on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    PyTorch version on the card at the shapes the serving and training paths
    give it (``ln_mlp`` at both towers' buckets 128 and 8 and at the train
    batches 256 and 4096, ``preprocess`` at B = 128, 8 and 1 and at other
-   input shapes, odd widths too, in bf16 and f32, and at 384x384 -> 336
-   (``vit-l14-336``'s output size) in bf16, and ``fused_mixer_block_tbd``
+   input shapes, odd widths too, in bf16 and f32, at 384x384 -> 336
+   (``vit-l14-336``'s output size) in bf16, and at the ResNet presets'
+   sizes, 256 -> 288, 384 -> 384 and 512 -> 448 at B = 8 in both dtypes,
+   each plan within 110,672 bytes of shared memory), and ``fused_mixer_block_tbd``
    at both towers' buckets 128 and 8 and the train batch 256, a B no batch
    tile divides, and f32), and each of
    ``ln_mlp``'s three bf16 stages (LN pass, GEMM 1 with QuickGELU, GEMM 2
@@ -145,6 +148,32 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    step ms, images a second, peak memory and ``train_mfu`` from
    ``vit_flops``.
 
+8. The ResNet vision tower, with every launch counter set to 0 before each
+   part and read after it: full-width RN50 (bf16, weights from seed 0 with
+   every BN site drawn from a numpy seed, ``perturb_bn``: the seed-0 init's
+   zero ``bn3`` scales would leave each bottleneck's main branch adding
+   nothing). 8a: an ``InferenceEngine`` on 256x256 sources, warmed up,
+   serving ``encode_text`` of 5 captions, ``encode_image_arrays`` of 7
+   images, ``similarity`` and ``/healthz`` + ``/encode_text`` over HTTP; the
+   front end through ``preprocess`` (one launch) -> ``encode_image`` at
+   B = 128 against the ``"torch"`` front end (cosine >= 0.999); the towers
+   at buckets 8 and 128 in turns. 8b: f32 on the card (cuDNN without TF32)
+   against the CPU at B = 2 (cosine >= 0.99999; one block's ``bn3`` skipped
+   must fail it), bf16 against f32 on the card (``RN_BF16_COSINE``). 8c:
+   int8: one bottleneck's int32 conv sums (and the stem's, K = 27) on the
+   card equal to the CPU's; calibration on 128 images and 128 captions, its
+   artifact (the per-stage scale tree) served bit for bit by a second
+   engine; the image and text gates at n = 4096 (the image gate through
+   the float front end); an engine on 256x256 sources serving int8 only
+   the towers whose gate passed; the int8 towers timed beside bf16. 8d: 8
+   steps at B = 256 on one fixed batch at ``TrainConfig``'s defaults
+   (reported) and at ``VIT_TRAIN_LR`` (the 8th loss below the first, every
+   running statistic moved); one step under ``freeze="visual"`` (every
+   running statistic bit for bit) and one under per-bottleneck remat (step
+   1's loss and running statistics bit for bit those without remat);
+   step ms, images a second, peak memory and ``train_mfu`` from
+   ``rn_flops``.
+
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits 1 before doing anything.
@@ -217,8 +246,19 @@ PREPROCESS_CASES = [  # (label, input_hw, n_px, B, dtype): the bench front end, 
     ("300x200_b1_bf16", (300, 200), 224, 1, torch.bfloat16),
     ("90x131_f32", (90, 131), 64, 3, torch.float32),  # W % 4 != 0: the kernel's byte loads
     ("384x384_336_bf16", (384, 384), 336, 8, torch.bfloat16),  # vit-l14-336's output size
+    # the ResNet presets' output sizes: rn50x4 (288), rn50x16 (384), rn50x64 (448)
+    ("256_288_bf16", (256, 256), 288, 8, torch.bfloat16),
+    ("256_288_f32", (256, 256), 288, 8, torch.float32),
+    ("384_384_bf16", (384, 384), 384, 8, torch.bfloat16),
+    ("384_384_f32", (384, 384), 384, 8, torch.float32),
+    ("512_448_bf16", (512, 512), 448, 8, torch.bfloat16),
+    ("512_448_f32", (512, 512), 448, 8, torch.float32),
 ]
-PREPROCESS_TIMED = ("bf16", "b8_bf16", "f32")  # timed warm and cold in phase 3
+# The most shared memory a plan at the RN sizes takes (the host plan's
+# reckoning for 512 -> 448); phase 1 holds each RN-size plan to it.
+RN_PLAN_SMEM_MAX = 110672
+# timed warm and cold in phase 3
+PREPROCESS_TIMED = ("bf16", "b8_bf16", "f32", "256_288_bf16", "384_384_bf16", "512_448_bf16")
 # (label, B, T, D, dtype): both towers at buckets 128 and 8 and at the train
 # batch of 256 (phase 4), a B no batch tile divides, f32
 BLOCK_CASES = [
@@ -423,6 +463,9 @@ def check_preprocess(dev):
         else:
             require(rel <= BF16_REL_TOL, f"preprocess {label}: relative error {rel} > {BF16_REL_TOL}")
             case["tol"] = f"relative Frobenius <= {BF16_REL_TOL} (bf16 store)"
+        if n in (288, 384, 448):
+            require(plan.smem_bytes <= RN_PLAN_SMEM_MAX,
+                    f"preprocess {label}: {plan.smem_bytes} B of shared memory > {RN_PLAN_SMEM_MAX}")
         if label in PREPROCESS_TIMED:
             case.update(imgs=imgs, bands=bands)
         results[label] = case
@@ -2381,6 +2424,413 @@ def vit_path(dev, counters):
     return out
 
 
+# ---- phase 8: the ResNet vision tower (RN50) ------------------------------------
+
+RN_PRESET = "rn50"
+RN_BUCKETS = (8, 128)
+RN_F32_N = 2  # rows held in f32, card against CPU
+RN_F32_COSINE = 0.99999  # per row, f32 on the card (TF32 off) against f32 on the CPU
+# per row, RN50 bf16 against f32 on the card; set from the first reading on
+# an H100 80GB HBM3 (0.9999927 at B = 2; CHANGES.md)
+RN_BF16_COSINE = 0.9999
+RN_BN_SEED = 0  # the numpy seed every BN site of phase 8's RN50 is drawn from
+RN_SUMS_B = 8  # the batch of the int32-sums check
+
+
+def perturb_bn(visual, seed=RN_BN_SEED):
+    """Every BN site of a ``ModifiedResNet`` drawn from a numpy seed, as the
+    JAX suite's RN tests draw them (``tests/test_quant.py``): scale U(0.5,
+    1.5), bias N(0, 0.1), running mean N(0, 0.2), var U(0.5, 2). The seed-0
+    init has every ``bn3`` scale at 0, where each bottleneck's main branch
+    would add nothing."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for bn in visual.bn_sites().values():
+            c = bn.num_features
+            for t, draw in ((bn.weight, rng.uniform(0.5, 1.5, c)), (bn.bias, rng.normal(0, 0.1, c)),
+                            (bn.running_mean, rng.normal(0, 0.2, c)), (bn.running_var, rng.uniform(0.5, 2.0, c))):
+                t.copy_(torch.from_numpy(draw.astype(np.float32)))
+    return visual
+
+
+def rn_model(dev, cfg=None):
+    """Full-width RN50 from seed 0 with its BN sites drawn (``perturb_bn``)."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+
+    model = CLIP(cfg or PRESETS[RN_PRESET], device=dev, generator=torch.Generator().manual_seed(0))
+    perturb_bn(model.visual)
+    return model
+
+
+def rn_flops(cfg) -> float:
+    """The analytic forward FLOPs of one sample through both towers: every
+    convolution 2 H' W' Cin Cout k^2 at its output size (the ResNet tower),
+    the attention pool (one query), and the transformer text tower as
+    ``vit_flops`` counts it."""
+    def conv(h, cin, cout, k):
+        return 2 * h * h * cin * cout * k * k
+
+    w, h = cfg.vision_width, cfg.image_resolution // 2
+    f = conv(h, 3, w // 2, 3) + conv(h, w // 2, w // 2, 3) + conv(h, w // 2, w, 3)
+    h //= 2
+    inplanes = w
+    for i, blocks in enumerate(cfg.vision_layers):
+        planes = w * 2**i
+        for b in range(blocks):
+            stride = 2 if i > 0 and b == 0 else 1
+            f += conv(h, inplanes, planes, 1) + conv(h, planes, planes, 3)
+            h //= stride
+            f += conv(h, planes, planes * 4, 1)
+            if stride > 1 or inplanes != planes * 4:
+                f += conv(h, inplanes, planes * 4, 1)
+            inplanes = planes * 4
+    c, t = w * 32, h * h + 1
+    f += 2 * c * c + 2 * 2 * t * c * c + 2 * 2 * t * c + 2 * c * cfg.embed_dim
+    text = cfg.text_layers * (24 * cfg.context_length * cfg.text_width**2 + 4 * cfg.context_length**2 * cfg.text_width)
+    return float(f + text + 2 * cfg.text_width * cfg.embed_dim)
+
+
+def rn_tower_inputs(cfg, B, dev, seed):
+    """Random bf16 inputs of both towers at batch ``B``: normalised-range
+    images [B, R, R, 3] and text-tower activations [B, 77, W]."""
+    g = torch.Generator().manual_seed(seed)
+    r = cfg.image_resolution
+    xv = torch.randn(B, r, r, 3, generator=g).to(device=dev, dtype=torch.bfloat16)
+    xt = torch.randn(B, cfg.context_length, cfg.text_width, generator=g).to(device=dev, dtype=torch.bfloat16)
+    return xv, xt
+
+
+def rn_serving(dev, counters):
+    """8a: RN50 (bf16) behind an InferenceEngine on 256x256 sources, HTTP,
+    the bench front end through the preprocess kernel, the towers timed."""
+    from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+
+    model = rn_model(dev)
+    cfg = model.cfg
+    require(cfg.is_resnet and cfg.compute_dtype == "bfloat16", f"{RN_PRESET}: {cfg}")
+    images = np.random.default_rng(0).integers(0, 256, (128, 256, 256, 3), dtype=np.uint8)
+    out = {"preset": RN_PRESET, "params": sum(p.numel() for p in model.parameters()),
+           "bn_running_elements": sum(b.numel() for k, b in model.named_buffers() if k.endswith(("_mean", "_var")))}
+    engine = InferenceEngine(model, input_hw=(256, 256))
+    counters.reset()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    out["warmup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    txt = engine.encode_text(TEXTS[:5])
+    out["encode_text_5_ms"] = (time.perf_counter() - t0) * 1e3
+    check_features(txt, 5, cfg.embed_dim, "RN encode_text(5)")
+    t0 = time.perf_counter()
+    img = engine.encode_image_arrays(images[:7])
+    out["encode_image_7_ms"] = (time.perf_counter() - t0) * 1e3
+    check_features(img, 7, cfg.embed_dim, "RN encode_image_arrays(7)")
+    sims = engine.similarity(images[:3], TEXTS[:4])
+    require(sims.shape == (3, 4) and np.isfinite(sims).all(), sims)
+    np.testing.assert_allclose(sims, 100.0 * img[:3] @ txt[:4].T, atol=1e-3)
+    health, http_feats = http_requests(engine, TEXTS[:2])
+    np.testing.assert_allclose(http_feats, txt[:2], atol=1e-6)
+    out["healthz"] = health
+
+    # the bench front end: the preprocess kernel -> encode_image at batch 128,
+    # against the "torch" front end with the same tower
+    pre_kernel = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="kernel")
+    pre_torch = make_batch_preprocess((256, 256), cfg.image_resolution, dtype=torch.bfloat16, backend="torch")
+    x = torch.from_numpy(images).to(dev)
+    with torch.inference_mode():
+        front = model.encode_image(pre_kernel(x)).float()
+    torch.cuda.synchronize()
+    launches = counters.read()
+    log(f"RN50 serving launches: {launches}")
+    require(launches["preprocess"] == 1 and launches["ln_mlp"] == 0 and launches["fused_mixer_block"] == 0,
+            f"RN50 serving launched {launches}: expected preprocess once, no mixer kernel")
+    with torch.inference_mode():
+        front_ref = model.encode_image(pre_torch(x)).float()
+    cos = float(torch.nn.functional.cosine_similarity(front, front_ref, dim=-1).min())
+    require(cos >= COSINE_MIN, f"RN50 front end: kernel vs torch preprocess cosine {cos} < {COSINE_MIN}")
+    out["front_end128_min_cosine_vs_torch"] = cos
+    out["launches"] = launches
+    out["front_end128_ms"] = in_turns({"kernel_ms": lambda: model.encode_image(pre_kernel(x)),
+                                       "torch_ms": lambda: model.encode_image(pre_torch(x))})
+    rows = {}
+    for B in RN_BUCKETS:
+        xv, xt = rn_tower_inputs(cfg, B, dev, seed=17)
+        rows[f"b{B}"] = in_turns({"vision_ms": lambda: model.visual(xv), "text_ms": lambda: model.transformer(xt)})
+        log(f"RN50 towers at bucket {B}: {rows[f'b{B}']}")
+    out["towers_ms"] = rows
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del engine, x, front, front_ref
+    return out, model
+
+
+def rn_cosines(model, n):
+    """8b: per-row image cosines on ``n`` images of the same weights: f32 on
+    the card against f32 on the CPU, bf16 against f32 on the card, and the
+    planted fault (one block's bn3 skipped) in f32 on the card against the
+    CPU, which must fail the first bound."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.evals.quant_gate import float32_twin, synthetic_images
+    from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+
+    cfg = model.cfg
+    images = normalize_images(torch.from_numpy(synthetic_images(n, cfg.image_resolution, seed=13)))
+    cpu = CLIP(cfg.replace(compute_dtype="float32"), device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    card = float32_twin(model)
+    dev = model.device
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a.float().cpu(), b.float().cpu(), dim=-1).min())
+
+    with torch.inference_mode():
+        want = cpu.eval().encode_image(images)
+        got = card.encode_image(images.to(dev))
+        out = {"image_f32_card_vs_cpu": cos(got, want),
+               "image_bf16_vs_f32_card": cos(model.encode_image(images.to(dev)), got)}
+        bn3 = card.visual.layer2[-1].bn3
+        bn3.forward = lambda y: y  # the planted fault
+        out["planted_skip_bn3"] = cos(card.encode_image(images.to(dev)), want)
+        del bn3.forward
+        out["after_undo"] = cos(card.encode_image(images.to(dev)), want)
+    del cpu, card
+    return out
+
+
+def rn_int8(dev, counters, model):
+    """8c: RN50 int8: one bottleneck's int32 conv sums on the card against
+    the CPU's; calibration on 128 images and 128 captions, its artifact
+    served bit for bit by a second engine; the gates at INT8_GATE_N; an
+    engine on 256x256 sources serving int8 only the towers whose gate
+    passed; the int8 towers timed beside the bf16 ones."""
+    import os
+    import shutil
+    import tempfile
+
+    from clip_mixer_tpu_torch.evals import quant_gate as gates
+    from clip_mixer_tpu_torch.models.clip import l2_normalize
+    from clip_mixer_tpu_torch.ops import quant as tq
+    from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    cfg = model.cfg
+    out = {"calibration_images": INT8_CALIB_N, "calibration_captions": len(CAPTIONS), "gate_n": INT8_GATE_N}
+    root = tempfile.mkdtemp(prefix="chip_smoke_rn_int8_")
+    try:
+        counters.reset()
+        calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+        artifact = os.path.join(root, "scales.npz")
+        a = InferenceEngine(model)
+        t0 = time.perf_counter()
+        a.enable_int8(calib, CAPTIONS, save_calibration=artifact)
+        out["enable_int8_s"] = time.perf_counter() - t0
+        require(a.path_kinds == {"image": "int8", "text": "int8"}, a.path_kinds)
+        qvis, qtext = a._image_path[1], a._text_path[1]
+        require(isinstance(qvis, tq.QuantResNet), f"RN int8 image tower: {type(qvis).__name__}")
+
+        # one bottleneck's int32 sums (and the stem's, K = 27) on the card against the CPU
+        rng = np.random.default_rng(18)
+        sums = {}
+        blk = qvis.layer2[0]
+        r = cfg.image_resolution
+        w = cfg.vision_width  # layer2's planes are 2w, its input 4w wide
+        sites = {"stem.conv1": (qvis.conv1, r, 3, 2, 1), "layer2.0.conv1": (blk.conv1, r // 4, 4 * w, 1, 0),
+                 "layer2.0.conv2": (blk.conv2, r // 4, 2 * w, 1, 1), "layer2.0.conv3": (blk.conv3, r // 8, 2 * w, 1, 0),
+                 "layer2.0.downsample": (blk.downsample, r // 8, 4 * w, 1, 0)}
+        for name, (qc, hw, cin, stride, padding) in sites.items():
+            xq = torch.from_numpy(rng.integers(-127, 128, (RN_SUMS_B, hw, hw, cin)).astype(np.int8))
+            got = tq.conv_sums(xq.to(dev), qc.q, qc.kernel_size, stride, padding).cpu()
+            want = tq.conv_sums(xq, qc.q.cpu(), qc.kernel_size, stride, padding)
+            sums[name] = {"shape": list(got.shape), "K": int(qc.q.shape[1]), "equal": bool(torch.equal(got, want))}
+            require(sums[name]["equal"], f"RN int8 {name}: int32 sums on the card differ from the CPU's")
+        out["int32_sums_card_vs_cpu"] = sums
+
+        b = InferenceEngine(model)
+        b.enable_int8(calibration=artifact)
+        probe = gates.synthetic_images(32, cfg.image_resolution, seed=5)
+        img_a, txt_a = a.encode_image_arrays(probe), a.encode_text(TEXTS)
+        check_features(img_a, 32, cfg.embed_dim, "RN int8 encode_image_arrays(32)")
+        check_features(txt_a, len(TEXTS), cfg.embed_dim, "RN int8 encode_text(40)")
+        require(np.array_equal(b.encode_image_arrays(probe), img_a), "RN int8 artifact: image features differ")
+        require(np.array_equal(b.encode_text(TEXTS), txt_a), "RN int8 artifact: text features differ")
+        del b
+        f = InferenceEngine(model)
+        cos_img, cos_txt = (img_a * f.encode_image_arrays(probe)).sum(-1), (txt_a * f.encode_text(TEXTS)).sum(-1)
+        out["cosine_int8_vs_bf16"] = {"image_min": float(cos_img.min()), "image_mean": float(cos_img.mean()),
+                                      "text_min": float(cos_txt.min()), "text_mean": float(cos_txt.mean())}
+
+        classifier = gates.build_float_classifier(model, GATE_CLASSES, GATE_TEMPLATES, batch_size=INT8_GATE_BATCH)
+        gate_out = {}
+        t0 = time.perf_counter()
+        imgs = gates.synthetic_images(INT8_GATE_N, cfg.image_resolution, seed=3)
+        gate_out["image"] = gates.noise_floor_gate(model, imgs, classifier, calibrate_n=INT8_CALIB_N,
+                                                   batch_size=INT8_GATE_BATCH)
+        gate_out["image"]["s"] = time.perf_counter() - t0
+        del imgs
+        t0 = time.perf_counter()
+        f32 = gates.float32_twin(model)
+        bank_imgs = torch.from_numpy(gates.synthetic_images(512, cfg.image_resolution, seed=2)).to(dev)
+        with torch.inference_mode():
+            bank = l2_normalize(f32.encode_image(normalize_images(bank_imgs, dtype=torch.float32))).cpu().numpy()
+        del f32, bank_imgs
+        captions = tokenize(gate_captions()[:INT8_GATE_N], cfg.context_length, truncate=True)
+        gate_out["text"] = gates.text_noise_floor_gate(model, captions, bank.T, calibrate_n=INT8_CALIB_N,
+                                                       batch_size=512)
+        gate_out["text"]["s"] = time.perf_counter() - t0
+        for k, g in gate_out.items():
+            log(f"RN gate {k}: flips bf16 {g['flips_bf16']} int8 {g['flips_int8']} of {g['n']}, ratio "
+                f"{g['flip_ratio']:.3f} (CI {g['flip_ratio_ci_low']:.3f}..{g['flip_ratio_ci_high']:.3f}), "
+                f"passed {g['passed']}")
+        out["gates"] = gate_out
+
+        served = {k: bool(gate_out[k]["passed"]) for k in ("image", "text")}
+        out["served_int8"] = served
+        c = InferenceEngine(model, input_hw=(256, 256))
+        if any(served.values()):
+            c.enable_int8(gates.synthetic_images(INT8_CALIB_N, 256, seed=0) if served["image"] else None,
+                          CAPTIONS if served["text"] else None)
+        kinds = {k: "int8" if v else "float" for k, v in served.items()}
+        require(c.path_kinds == kinds, f"RN serving engine: {c.path_kinds}, gates say {kinds}")
+        u8 = np.random.default_rng(15).integers(0, 256, (7, 256, 256, 3), dtype=np.uint8)
+        check_features(c.encode_image_arrays(u8), 7, cfg.embed_dim, "RN gated engine: encode_image_arrays(7)")
+        check_features(c.encode_text(TEXTS[:5]), 5, cfg.embed_dim, "RN gated engine: encode_text(5)")
+        out["path_kinds"] = c.path_kinds
+        launches = counters.read()
+        require(launches == {"ln_mlp": 0, "preprocess": 0, "fused_mixer_block": 0},
+                f"the RN int8 path launched a kernel: {launches}")
+        out["launches"] = launches
+
+        rows = {}
+        for B in RN_BUCKETS:
+            xv, xt = rn_tower_inputs(cfg, B, dev, seed=16)
+            rows[f"vision_b{B}"] = in_turns({"int8_ms": lambda: tq.encode_image_rn_q(qvis, xv),
+                                             "bf16_ms": lambda: model.visual(xv)})
+            rows[f"text_b{B}"] = in_turns({"int8_ms": lambda: qtext.run_blocks(xt),
+                                           "bf16_ms": lambda: model.transformer(xt)})
+            log(f"RN int8 towers at bucket {B}: {rows[f'vision_b{B}']} / {rows[f'text_b{B}']}")
+        out["towers_ms"] = rows
+        del a, c, f, qvis, qtext
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def rn_running_stats(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+
+def rn_train_steps(dev, counters, cfg, batch, tcfg, steps=TRAIN_STEPS):
+    """``steps`` steps from seed 0 (BN drawn) at ``tcfg``, steps after
+    TRAIN_WARMUP timed with CUDA events: the readings, the launches, the
+    running statistics before and after step 1 and after the last."""
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    model = rn_model(dev, cfg)
+    opt = make_optimizer(tcfg, total_steps=steps)
+    state, step = init_train_state(model, opt), make_train_step(cfg, tcfg, opt)
+    free_card()
+    counters.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    stats = {"init": rn_running_stats(model)}
+    metrics = []
+    for i in range(steps):
+        if i == TRAIN_WARMUP:
+            start.record()
+        state, m = step(state, batch)
+        metrics.append(m)
+        if i == 0:
+            stats["step1"] = rn_running_stats(model)
+    end.record()
+    end.synchronize()
+    stats["last"] = rn_running_stats(model)
+    B = batch["images"].shape[0]
+    out = {"B": B, "steps": steps, "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "learning_rate": tcfg.learning_rate, "warmup_steps": tcfg.warmup_steps, "freeze": tcfg.freeze,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": [float(m["loss"]) for m in metrics], "grad_norms": [float(m["grad_norm"]) for m in metrics],
+           "launches": counters.read()}
+    if steps > TRAIN_WARMUP:
+        ms = start.elapsed_time(end) / (steps - TRAIN_WARMUP)
+        flops = 3.0 * rn_flops(cfg)
+        out.update(step_ms=ms, images_per_s=B / ms * 1e3, train_flops_per_sample=flops,
+                   train_mfu=B * flops / (ms * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16])
+    del state, step, metrics, model
+    free_card()
+    log(f"RN50 train B={B} lr {tcfg.learning_rate} remat {cfg.remat} freeze {tcfg.freeze}: "
+        f"{ {k: out[k] for k in ('step_ms', 'images_per_s', 'peak_mem_gb', 'train_mfu') if k in out} }, "
+        f"losses {out['losses']}")
+    require(all(np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])), f"RN train: {out}")
+    require(sum(out["launches"].values()) == 0, f"RN train launched {out['launches']}")
+    return out, stats
+
+
+def rn_train(dev, counters):
+    """8d: RN50 (bf16 compute, f32 masters) takes TRAIN_STEPS steps at
+    TRAIN_B on one fixed batch at TrainConfig's defaults (reported) and at
+    VIT_TRAIN_LR (the 8th loss below the first, every BN site's running
+    statistics moved); one step under freeze="visual" (every running
+    statistic bit for bit) and one under per-bottleneck remat (step 1's
+    loss and running statistics bit for bit those without remat)."""
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+
+    cfg = PRESETS[RN_PRESET]
+    batch = on_device(train_batch(cfg, TRAIN_B, seed=0), dev)
+    out = {}
+    out["defaults"], _ = rn_train_steps(dev, counters, cfg, batch, TrainConfig())
+    tcfg = TrainConfig(learning_rate=VIT_TRAIN_LR)
+    out["lr"], stats = rn_train_steps(dev, counters, cfg, batch, tcfg)
+    losses = out["lr"]["losses"]
+    require(losses[-1] < losses[0], f"RN train at lr {VIT_TRAIN_LR}: loss {losses[0]} -> {losses[-1]}")
+    unmoved = [k for k in stats["init"] if not k.endswith("num_batches_tracked")
+               and torch.equal(stats["init"][k], stats["last"][k])]
+    require(not unmoved, f"RN train: running statistics that did not move: {unmoved[:5]}")
+    out["running_stats_moved"] = sum(not k.endswith("num_batches_tracked") for k in stats["init"])
+    frozen, fstats = rn_train_steps(dev, counters, cfg, batch, TrainConfig(learning_rate=VIT_TRAIN_LR,
+                                                                            freeze="visual"), steps=1)
+    changed = [k for k in fstats["init"] if not torch.equal(fstats["init"][k], fstats["last"][k])]
+    require(not changed, f"RN freeze='visual' moved running statistics: {changed[:5]}")
+    out["freeze_visual"] = dict(frozen, running_stats_bit_for_bit=True)
+    remat, rstats = rn_train_steps(dev, counters, cfg.replace(remat=True), batch, tcfg, steps=1)
+    require(remat["losses"][0] == losses[0], f"RN remat: step-1 loss {remat['losses'][0]}, {losses[0]} without")
+    diff = [k for k in rstats["last"] if not torch.equal(rstats["last"][k], stats["step1"][k])]
+    require(not diff, f"RN remat: step-1 running statistics differ from no remat: {diff[:5]}")
+    out["remat"] = dict(remat, step1_loss_and_running_stats_bit_for_bit=True)
+    out["launches"] = {k: sum(out[r]["launches"][k] for r in ("defaults", "lr", "freeze_visual", "remat"))
+                       for k in out["lr"]["launches"]}
+    del batch
+    free_card()
+    return out
+
+
+def rn_path(dev, counters):
+    """Phase 8: RN50, each part with the counters set to 0 just before it and
+    read just after."""
+    t0 = time.perf_counter()
+    out = {}
+    out["rn50_serving"], model = rn_serving(dev, counters)
+    out["rn50_cosines"] = c = rn_cosines(model, RN_F32_N)
+    log(f"RN50 cosines: {c}")
+    require(c["image_f32_card_vs_cpu"] >= RN_F32_COSINE,
+            f"RN50 f32 card vs CPU cosine {c['image_f32_card_vs_cpu']} < {RN_F32_COSINE}")
+    require(c["image_bf16_vs_f32_card"] >= RN_BF16_COSINE,
+            f"RN50 bf16 vs f32 cosine {c['image_bf16_vs_f32_card']} < {RN_BF16_COSINE}")
+    require(c["planted_skip_bn3"] < RN_F32_COSINE, f"RN50: a skipped bn3 passes the f32 bound ({c})")
+    require(c["after_undo"] >= RN_F32_COSINE, f"RN50: the planted fault was not undone ({c})")
+    out["rn50_cosines"]["tol"] = (f"f32 card vs CPU >= {RN_F32_COSINE}; bf16 vs f32 on the card >= {RN_BF16_COSINE}; "
+                                  "a skipped bn3 must fail the first")
+    out["rn50_int8"] = rn_int8(dev, counters, model)
+    del model
+    free_card()
+    out["rn50_train"] = rn_train(dev, counters)
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = {k: out[k]["launches"] for k in ("rn50_serving", "rn50_int8", "rn50_train")}
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2451,6 +2901,11 @@ def main() -> int:
         row["vit_launches"] = {k: v[row["name"]] for k, v in vit["launches"].items()}
     require(all(vit["launches"][k]["preprocess"] > 0 for k in ("vit_b32_serving", "vit_l14")),
             "the ViT serving paths never launched preprocess")
+    rn = rn_path(dev, counters)
+    emit({"resnet": rn})
+    require(rn["launches"]["rn50_serving"]["preprocess"] > 0, "the RN50 serving path never launched preprocess")
+    for row in kernels:  # each kernel's launches in phase 8's parts
+        row["rn_launches"] = {k: v[row["name"]] for k, v in rn["launches"].items()}
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

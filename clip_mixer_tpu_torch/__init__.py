@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the CLIP models (Mixer and transformer towers) in ``clip_mixer_tpu``.
+"""PyTorch/CUDA port of the CLIP models (Mixer, transformer and ResNet towers) in ``clip_mixer_tpu``.
 
 The JAX package beside it is the reference this port is tested against. The
 port imports neither JAX nor ``clip_mixer_tpu``. Its entry points run on the

@@ -4,7 +4,8 @@ Counterpart of the export part of ``clip_mixer_tpu/api.py``: the bridge from
 the trainer to serving (``outputs/<run>/export``). An export directory holds
 
 * ``config.json``, ``dataclasses.asdict`` of the :class:`CLIPConfig`;
-* ``model.pt``, the model's reference-keyed f32 state dict (the upstream
+* ``model.pt``, the model's reference-keyed state dict, f32 but for a
+  ResNet's integer ``num_batches_tracked`` (the upstream
   CLIP-mixer layout), which the JAX package's
   ``models/convert.py::load_torch_checkpoint`` (and so its ``api.load``)
   reads too. The JAX package exports orbax params instead (ROADMAP.md,
@@ -30,7 +31,8 @@ from clip_mixer_tpu_torch.train.metrics import require_local
 
 def save_pretrained(model: Union[torch.nn.Module, Mapping[str, torch.Tensor]], cfg: CLIPConfig, path: str) -> None:
     """Write ``config.json`` and ``model.pt`` (a CLIP's state dict, or the
-    state dict itself, as f32 CPU tensors) to the directory ``path``."""
+    state dict itself, as CPU tensors: floats in f32) to the directory
+    ``path``."""
     require_local(path, "export path")
     sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
     os.makedirs(path, exist_ok=True)
@@ -38,7 +40,8 @@ def save_pretrained(model: Union[torch.nn.Module, Mapping[str, torch.Tensor]], c
         json.dump(dataclasses.asdict(cfg), f, indent=2)
     target = os.path.join(path, "model.pt")
     tmp = f"{target}.tmp{os.getpid()}"
-    torch.save({k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}, tmp)
+    torch.save({k: v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype).contiguous()
+                for k, v in sd.items()}, tmp)
     os.replace(tmp, target)
 
 

@@ -253,13 +253,13 @@ def frontend_noise_floor_gate(model, images_u8_src: np.ndarray, classifier: np.n
             int8 patches, ``ops/quant.py``) -> int8 tower;
             ``front_end="nhwc"``: the bf16 preprocess -> ``encode_image_q``.
 
-    Mixer towers only, as the JAX package's: a ViT tower's image gate is
-    :func:`noise_floor_gate`, through the float front end."""
+    Mixer towers only, as the JAX package's: a ViT or ResNet tower's image
+    gate is :func:`noise_floor_gate`, through the float front end."""
     if front_end not in ("planar", "nhwc"):
         raise ValueError(f"front_end must be 'planar' or 'nhwc', got {front_end!r}")
     cfg, dev = model.cfg, model.device
-    if cfg.use_transformer:
-        raise ValueError("the front-end gate serves Mixer towers; gate a ViT tower with noise_floor_gate")
+    if cfg.is_resnet or cfg.use_transformer:
+        raise ValueError("the front-end gate serves Mixer towers; gate a ViT or ResNet tower with noise_floor_gate")
     dt = compute_dtype(cfg.compute_dtype)
     hw = tuple(images_u8_src.shape[1:3])
     pre32 = make_batch_preprocess(hw, cfg.image_resolution, normalize=True, dtype=torch.float32)

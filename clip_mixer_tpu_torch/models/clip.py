@@ -2,14 +2,17 @@
 
 Counterpart of ``clip_mixer_tpu/models/clip.py``. ``forward`` returns the
 reference triple (image features, text features, exp(logit_scale)) with both
-feature sets L2-normalised; :meth:`CLIP.forward_train` adds the (empty)
-batch-norm statistics of the JAX training forward; :meth:`CLIP.logits` is
-the demo path. The module's state-dict keys are the reference checkpoint's
+feature sets L2-normalised; :meth:`CLIP.forward_train` adds the batch-norm
+statistics of the JAX training forward (empty but for a ResNet vision
+tower); :meth:`CLIP.logits` is the demo path. A ResNet config's vision
+encoder is ``models/resnet.py``'s ``ModifiedResNet``; its text tower is a
+transformer. The module's state-dict keys are the reference checkpoint's
 (``visual.*``, ``token_embedding.weight``, ``transformer.mixBlocks.*`` or,
 for transformer towers, ``positional_embedding`` and
 ``transformer.resblocks.*``, ``ln_final.*``, ``text_projection``,
-``logit_scale``), plus ``logit_bias`` when ``cfg.logit_bias_init`` is set
-(the SigLIP loss's learnable bias).
+``logit_scale``; a ResNet's ``visual.conv1..3``, ``visual.bn*``,
+``visual.layer{i}.{b}.*`` and ``visual.attnpool.*``), plus ``logit_bias``
+when ``cfg.logit_bias_init`` is set (the SigLIP loss's learnable bias).
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from torch import nn
 from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from clip_mixer_tpu_torch.models.layers import LayerNorm
+from clip_mixer_tpu_torch.models.resnet import resnet_encoder_train
 from clip_mixer_tpu_torch.models.towers import (
-    VisionEncoder,
     embed_text,
     init_tower,
     make_tower,
+    make_visual,
     pool_text,
     require_ported,
 )
@@ -39,7 +43,7 @@ def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 class CLIP(nn.Module):
-    """CLIP with mixer or transformer towers and f32 master parameters,
+    """CLIP with mixer, transformer or ResNet towers and f32 master parameters,
     initialised from ``generator`` (a CPU ``torch.Generator``; seed 0 when
     omitted) and placed on ``device`` (``cuda`` when omitted; see
     ``device.resolve_device``)."""
@@ -50,7 +54,7 @@ class CLIP(nn.Module):
         require_ported(cfg)
         self.cfg = cfg
         width = cfg.text_width
-        self.visual = VisionEncoder(cfg)
+        self.visual = make_visual(cfg)
         self.token_embedding = nn.Embedding(cfg.vocab_size, width)
         if cfg.use_transformer:
             self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, width))
@@ -96,12 +100,20 @@ class CLIP(nn.Module):
         txt = l2_normalize(self.encode_text(text))
         return img, txt, self.logit_scale.exp()
 
-    def forward_train(self, images: torch.Tensor, text: torch.Tensor):
+    def forward_train(self, images: torch.Tensor, text: torch.Tensor, bn_eval: bool = False):
         """The training forward: (image features, text features,
-        exp(logit_scale), {}); the last is the batch-norm statistics of the
-        JAX training forward, empty for mixer towers."""
-        img, txt, scale = self(images, text)
-        return img, txt, scale, {}
+        exp(logit_scale), bn_stats). A ResNet vision tower normalises with
+        its batch moments, returned per BN site in ``bn_stats``
+        (``models/resnet.py::resnet_encoder_train``) for the running-stat
+        merge after the optimiser step; other towers return ``{}``.
+        ``bn_eval``: the ResNet normalises with its running statistics and
+        returns ``{}`` (a frozen vision tower keeps them, as torch's
+        ``eval()`` does)."""
+        if not self.cfg.is_resnet or bn_eval:
+            img, txt, scale = self(images, text)
+            return img, txt, scale, {}
+        feats, bn_stats = resnet_encoder_train(self.visual, images)
+        return l2_normalize(feats), l2_normalize(self.encode_text(text)), self.logit_scale.exp(), bn_stats
 
     def logits(self, images: torch.Tensor, text: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits_per_image, logits_per_text)."""

@@ -10,8 +10,10 @@ transformer towers; :func:`load_jax_params` loads that into a
 subtree; both go through the per-block mappings, :func:`jax_block_arrays`
 and :func:`jax_attn_block_arrays`. :func:`load_jax_qparams` builds the int8
 towers of ``ops/quant.py`` from the JAX package's quantized tree
-(``quantize_vision_tower`` / ``quantize_text_tower`` and their ViT
-counterparts), so both packages run the same int8 weights and scales.
+(``quantize_vision_tower`` / ``quantize_text_tower``, their ViT
+counterparts and ``quantize_resnet_tower``), so both packages run the same
+int8 weights and scales. A ResNet's keys are the reference's
+(:func:`jax_resnet_arrays`).
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, MixerTower
 from clip_mixer_tpu_torch.models.towers import require_ported
-from clip_mixer_tpu_torch.ops.quant import QuantTextTower, QuantVisionTower
+from clip_mixer_tpu_torch.ops.quant import QuantResNet, QuantTextTower, QuantVisionTower
 
 
 def _f32(a) -> np.ndarray:
@@ -32,7 +35,9 @@ def _f32(a) -> np.ndarray:
 
 
 def _tensors(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(a, np.float32, order="C")) for k, a in arrays.items()}
+    """f32 tensors, but integer arrays (``num_batches_tracked``) as int64."""
+    return {k: torch.from_numpy(np.array(a, np.int64 if np.asarray(a).dtype.kind in "iu" else np.float32, order="C"))
+            for k, a in arrays.items()}
 
 
 def jax_block_arrays(block: Mapping) -> Dict[str, np.ndarray]:
@@ -110,7 +115,7 @@ def load_jax_mixer(module: Union[MixerBlock, MixerTower], tree: Mapping):
 
 
 def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves; mixer or transformer towers) ->
+    """JAX param tree (numpy leaves; mixer, transformer or ResNet towers) ->
     reference-keyed state dict: key for key and value for value the JAX
     package's ``params_to_state_dict``."""
     require_ported(cfg)
@@ -124,16 +129,19 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
         sd.update({f"{prefix}.{k}": v for k, v in _tower_arrays(tower).items()})
 
     v = tree["visual"]
-    p = cfg.vision_patch_size
-    w = _f32(v["patch_embed"]["kernel"])  # [(ph pw c), W]
-    sd["visual.conv1.weight"] = w.reshape(p, p, 3, cfg.vision_width).transpose(3, 2, 0, 1)
-    sd["visual.class_embedding"] = _f32(v["class_embedding"])
-    if cfg.use_transformer:
-        sd["visual.positional_embedding"] = _f32(v["pos_embedding"])
-    put_ln("visual.ln_pre", v["ln_pre"])
-    put_tower("visual.transformer", v["tower"])
-    put_ln("visual.ln_post", v["ln_post"])
-    sd["visual.proj"] = _f32(v["proj"])
+    if cfg.is_resnet:
+        sd.update(jax_resnet_arrays(v, cfg))
+    else:
+        p = cfg.vision_patch_size
+        w = _f32(v["patch_embed"]["kernel"])  # [(ph pw c), W]
+        sd["visual.conv1.weight"] = w.reshape(p, p, 3, cfg.vision_width).transpose(3, 2, 0, 1)
+        sd["visual.class_embedding"] = _f32(v["class_embedding"])
+        if cfg.use_transformer:
+            sd["visual.positional_embedding"] = _f32(v["pos_embedding"])
+        put_ln("visual.ln_pre", v["ln_pre"])
+        put_tower("visual.transformer", v["tower"])
+        put_ln("visual.ln_post", v["ln_post"])
+        sd["visual.proj"] = _f32(v["proj"])
 
     t = tree["text"]
     sd["token_embedding.weight"] = _f32(t["token_embedding"])
@@ -148,6 +156,45 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
     return _tensors(sd)
 
 
+def jax_resnet_blocks(v: Mapping, cfg: CLIPConfig):
+    """(key prefix, JAX bottleneck subtree) of every bottleneck of a JAX
+    ResNet visual tree, in forward order."""
+    return [(f"layer{i + 1}.{b}", bp) for i in range(len(cfg.vision_layers)) for b, bp in enumerate(v[f"layer{i + 1}"])]
+
+
+def jax_resnet_convs(v: Mapping, cfg: CLIPConfig):
+    """(conv key prefix, BN key prefix, JAX conv subtree, JAX BN subtree) of
+    every conv site of a JAX ResNet visual tree, in forward order."""
+    sites = [(f"conv{i}", f"bn{i}", v[f"conv{i}"], v[f"bn{i}"]) for i in (1, 2, 3)]
+    for p, bp in jax_resnet_blocks(v, cfg):
+        sites += [(f"{p}.conv{j}", f"{p}.bn{j}", bp[f"conv{j}"], bp[f"bn{j}"]) for j in (1, 2, 3)]
+        if "downsample" in bp:
+            sites.append((f"{p}.downsample.0", f"{p}.downsample.1", bp["downsample"]["conv"], bp["downsample"]["bn"]))
+    return sites
+
+
+def jax_resnet_arrays(v: Mapping, cfg: CLIPConfig) -> Dict[str, np.ndarray]:
+    """A JAX ResNet visual tree -> the reference's ``visual.*`` keys: HWIO
+    kernels become OIHW ``.weight``s, each BN site ``weight``, ``bias``,
+    ``running_mean``, ``running_var`` and ``num_batches_tracked`` (0, as the
+    JAX export writes it), the attention pool's (in, out) kernels
+    ``{q,k,v,c}_proj`` weights (out, in)."""
+    sd: Dict[str, np.ndarray] = {}
+    for conv_key, bn_key, conv, bn in jax_resnet_convs(v, cfg):
+        sd[f"visual.{conv_key}.weight"] = _f32(conv["kernel"]).transpose(3, 2, 0, 1)
+        sd[f"visual.{bn_key}.weight"] = _f32(bn["scale"])
+        sd[f"visual.{bn_key}.bias"] = _f32(bn["bias"])
+        sd[f"visual.{bn_key}.running_mean"] = _f32(bn["mean"])
+        sd[f"visual.{bn_key}.running_var"] = _f32(bn["var"])
+        sd[f"visual.{bn_key}.num_batches_tracked"] = np.asarray(0, np.int64)
+    pool = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _f32(pool["pos_embedding"])
+    for name in ("q", "k", "v", "c"):
+        sd[f"visual.attnpool.{name}_proj.weight"] = _f32(pool[name]["kernel"]).T
+        sd[f"visual.attnpool.{name}_proj.bias"] = _f32(pool[name]["bias"])
+    return sd
+
+
 def load_jax_params(model, tree: Mapping):
     """Fill ``model`` (a port CLIP) from a JAX param tree; returns ``model``."""
     model.load_state_dict(jax_params_to_state_dict(tree, model.cfg), strict=True)
@@ -156,9 +203,32 @@ def load_jax_params(model, tree: Mapping):
 
 def _copy_pack(q_out_in: torch.Tensor, scale: torch.Tensor, pack: Mapping) -> None:
     """A JAX int8 pack ``{"q": [in, out], "scale": [out]}`` into a quant
-    module's [out, in] buffer and its scale."""
-    q_out_in.copy_(torch.from_numpy(np.ascontiguousarray(np.asarray(pack["q"], np.int8).T)))
+    module's [out, in] buffer (its columns past ``in``, the padding of K,
+    zero) and its scale."""
+    q = np.asarray(pack["q"], np.int8).reshape(-1, q_out_in.shape[0])
+    q_out_in.zero_()
+    q_out_in[:, :q.shape[0]].copy_(torch.from_numpy(np.ascontiguousarray(q.T)))
     scale.copy_(torch.from_numpy(_f32(pack["scale"])))
+
+
+def _load_quant_resnet(model, v: Mapping) -> QuantResNet:
+    """A JAX quantized ResNet visual tree (``quantize_resnet_tower``: per
+    conv site ``{"q": int8 HWIO, "scale", "bias", "a"}``) as a
+    :class:`QuantResNet` on ``model``'s float tower: the tree's int8
+    kernels (flattened in (kh, kw, cin) order), scales, folded biases and
+    activation scales."""
+    sites = [(f"conv{i}", v[f"conv{i}"]) for i in (1, 2, 3)]
+    for p, bp in jax_resnet_blocks(v, model.cfg):
+        sites += [(f"{p}.{k}", pack) for k, pack in bp.items()]  # conv1..3 and downsample: the port's names
+    a_scales: Dict = {f"conv{i}": v[f"conv{i}"]["a"] for i in (1, 2, 3)}
+    for i in range(len(model.cfg.vision_layers)):
+        a_scales[f"layer{i + 1}"] = [{k: p["a"] for k, p in bp.items()} for bp in v[f"layer{i + 1}"]]
+    vision = QuantResNet(model.visual, a_scales)
+    for name, pack in sites:
+        qc = vision.get_submodule(name)
+        _copy_pack(qc.q, qc.scale, pack)  # HWIO flattens to the patch order (kh, kw, cin) x out
+        qc.bias.copy_(torch.from_numpy(_f32(pack["bias"])))
+    return vision
 
 
 # (pack, bias attribute of the quant block, the JAX block subtree, its int8
@@ -187,8 +257,9 @@ def _load_quant_blocks(tower, tree_blocks: Mapping) -> None:
 
 
 @torch.no_grad()
-def load_jax_qparams(model, qtree: Mapping) -> Tuple[Optional[QuantVisionTower], Optional[QuantTextTower]]:
-    """The int8 towers of a JAX quantized tree (numpy leaves; Mixer or ViT)
+def load_jax_qparams(model, qtree: Mapping) -> Tuple[Optional[nn.Module], Optional[QuantTextTower]]:
+    """The int8 towers of a JAX quantized tree (numpy leaves; Mixer, ViT or
+    ResNet: a :class:`QuantVisionTower` or :class:`QuantResNet`)
     on ``model``, the port CLIP that holds the tree's float weights
     (``load_jax_params``): ``(vision, text)``, each None where the tree's
     tower is not quantized. The int8 weights, their scales and the
@@ -198,7 +269,10 @@ def load_jax_qparams(model, qtree: Mapping) -> Tuple[Optional[QuantVisionTower],
     # the subtree and key of a block's first int8 pack, present when the text tower is quantized
     first, q_key = ("attn", "qkv_q") if model.cfg.use_transformer else ("channel_mix", "w_in_q")
     vision = text = None
-    if "kernel_q" in v["patch_embed"]:
+    if model.cfg.is_resnet:
+        if "q" in v["conv1"]:
+            vision = _load_quant_resnet(model, v)
+    elif "kernel_q" in v["patch_embed"]:
         vision = QuantVisionTower(model.visual, v.get("a_scales"))
         _copy_pack(vision.patch_q, vision.patch_scale, v["patch_embed"]["kernel_q"])
         vision.set_planar()

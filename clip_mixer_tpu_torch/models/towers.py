@@ -9,7 +9,11 @@ adds ``positional_embedding`` (vision: after the CLS token, before
 causally. Text features are pooled at the EOT token, found as the argmax id
 (eot 49407 is the largest id).
 
-The ResNet tower is not ported yet (ROADMAP.md, Queue 1 item 14).
+A ResNet config (a tuple ``vision_layers``) carries ``tower="transformer"``
+for its text side: its vision encoder is ``models/resnet.py``'s
+:class:`~clip_mixer_tpu_torch.models.resnet.ModifiedResNet`
+(:func:`make_visual`), and every dispatch on the vision tower tests
+``cfg.is_resnet`` before ``cfg.use_transformer``.
 """
 
 from __future__ import annotations
@@ -23,16 +27,12 @@ from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import compute_dtype
 from clip_mixer_tpu_torch.models.layers import LayerNorm
 from clip_mixer_tpu_torch.models.mixer import MixerTower, init_mixer_tower
+from clip_mixer_tpu_torch.models.resnet import ModifiedResNet
 from clip_mixer_tpu_torch.models.transformer import TransformerTower, init_transformer_tower
 
 
 def require_ported(cfg: CLIPConfig) -> None:
-    """Raise for what the port does not have yet: the ResNet vision tower
-    and the multi-device fields."""
-    if cfg.is_resnet:
-        raise NotImplementedError(
-            "the ResNet vision tower is not ported yet (ROADMAP.md, Slice D, Queue 1 item 14)"
-        )
+    """Raise for what the port does not have yet: the multi-device fields."""
     for field in ("model_axis", "pipeline_axis"):
         if getattr(cfg, field):
             raise NotImplementedError(f"CLIPConfig.{field} is not ported yet (ROADMAP.md, Slice F)")
@@ -45,7 +45,9 @@ def remat_policy(cfg: CLIPConfig) -> Optional[str]:
 
 def make_tower(cfg: CLIPConfig, text: bool):
     """A tower of ``cfg``'s kind: the text tower (causally masked when a
-    transformer) or the vision tower."""
+    transformer) or the vision tower of a patch encoder."""
+    if cfg.is_resnet and not text:
+        raise ValueError("a ResNet config has no vision tower of blocks; make_visual builds its encoder")
     width, layers = (cfg.text_width, cfg.text_layers) if text else (cfg.vision_width, cfg.vision_layers)
     if cfg.use_transformer:
         heads = cfg.text_heads if text else cfg.vision_heads
@@ -68,6 +70,12 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     x = images.reshape(B, gh, patch, gw, patch, C)
     x = x.permute(0, 1, 3, 2, 4, 5)  # [B, gh, gw, ph, pw, C]
     return x.reshape(B, gh * gw, patch * patch * C)
+
+
+def make_visual(cfg: CLIPConfig) -> nn.Module:
+    """The vision encoder of ``cfg``: a :class:`ModifiedResNet` when
+    ``cfg.is_resnet``, else the patch encoder :class:`VisionEncoder`."""
+    return ModifiedResNet(cfg) if cfg.is_resnet else VisionEncoder(cfg)
 
 
 class VisionEncoder(nn.Module):

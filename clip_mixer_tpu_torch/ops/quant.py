@@ -1,6 +1,6 @@
-"""int8 (W8A8) serving path for the Mixer and transformer (ViT) towers.
+"""int8 (W8A8) serving path for the Mixer, transformer (ViT) and ResNet towers.
 
-Counterpart of ``clip_mixer_tpu/ops/quant.py`` without its ResNet part. The
+Counterpart of ``clip_mixer_tpu/ops/quant.py``. The
 FLOPs-heavy products run int8 x int8 -> int32 (``torch._int_mm``) with
 symmetric per-output-channel weight scales: the patch embed, and in every
 block both channel-mix linears (Mixer) or the QKV, attention-out and both
@@ -27,8 +27,10 @@ weight scale, and is cast to the compute dtype before a bias is added.
 Weights are stored ``[out, in]`` (``nn.Linear``'s layout) and handed to
 ``torch._int_mm`` as the transposed view, the layout it runs fastest on the
 H100. On CUDA ``_int_mm`` wants more than 16 rows and K, N multiples of 8;
-a K that is not (ViT-L/14's patch, 588) is padded with zero columns, which
-add nothing to the integer sums.
+a K that is not (ViT-L/14's patch, 588; the ResNet stem's first conv, 27)
+is padded with zero columns, which add nothing to the integer sums: the
+modules' weights once, when they are quantised, the activations at each
+call.
 
 The planar front end (:func:`make_planar_front_end`) takes uint8 NHWC at a
 source resolution to the int8 c-major patches the vision tower's int8 patch
@@ -37,8 +39,19 @@ embed reads (:func:`encode_image_q_patches`): the resize of
 quantise and patchify in int8.
 
 The planar front end serves Mixer towers only, as in the JAX package; a ViT
-int8 engine takes the float front end. ResNet towers have no int8 path here
-yet (ROADMAP.md, Slice D, Queue 1 item 14).
+or ResNet int8 engine takes the float front end.
+
+The ResNet tower (:class:`QuantResNet`) folds each convolution's inference
+BatchNorm into its kernel and a bias (:func:`fold_bn_into_conv`), quantises
+the folded kernel per output channel and its input at a calibrated static
+scale (:func:`calibrate_resnet_tower`), and convolves int8 x int8 -> int32
+(:func:`int8_conv`). PyTorch has no int8 convolution on CUDA and
+``F.unfold`` refuses int8, so the patches are gathered from padded, shifted,
+strided views of the NHWC int8 input (an im2col in (kh, kw, cin) order) and
+multiplied by ``torch._int_mm``: the int32 sums of the JAX package's
+``conv_general_dilated(..., preferred_element_type=int32)``. The int32
+sums become ``acc * (a * scale) + bias`` in f32, then the compute dtype.
+The attention pool stays in the compute dtype, shared with the float tower.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import compute_dtype
 from clip_mixer_tpu_torch.models.layers import layer_norm, quick_gelu, token_mix_branch
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, token_mix
+from clip_mixer_tpu_torch.models.resnet import BN_EPS, attention_pool, avg_pool, conv
 from clip_mixer_tpu_torch.models.towers import embed_patches, embed_text, patchify, pool_text
 from clip_mixer_tpu_torch.models.transformer import ResidualAttentionBlock, attention_core
 
@@ -99,13 +113,30 @@ def int8_matmul(
     x32 = x.reshape(-1, k).float()
     if x_scale is None:
         x_scale = torch.clamp_min(true_div(x32.abs().amax(dim=-1, keepdim=True), QMAX), 1e-8)
-    xq, w = quantize_activation(x32, x_scale), wq["q"]
-    if k % 8:  # _int_mm's K on CUDA; the padded [out, in] keeps w a transposed view
-        xq = nn.functional.pad(xq, (0, -k % 8))
-        w = nn.functional.pad(w.t(), (0, -k % 8)).t()
-    acc = torch._int_mm(xq, w)
+    acc = int_mm(quantize_activation(x32, x_scale), wq["q"])
     out = (acc.float() * x_scale * wq["scale"]).to(out_dtype)
     return out.reshape(*lead, out.shape[-1])
+
+
+def pad_k(q_out_in: torch.Tensor) -> torch.Tensor:
+    """An int8 [out, in] weight with zero columns up to a multiple of 8 in."""
+    return nn.functional.pad(q_out_in, (0, -q_out_in.shape[1] % 8))
+
+
+def int_mm(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int32 sums of int8 xq [M, k] and w [K, N] (K >= k, the rows past k
+    zero: a weight padded at quantisation, :func:`pad_k`); xq takes zero
+    columns up to K. A weight whose K is no multiple of 8 (a caller's
+    unpadded pack) is padded here, on every call. On the card, M <= 16
+    (``_int_mm`` wants more rows: a small ResNet's last stage at a small
+    batch) is padded with zero rows, which are dropped from the sums."""
+    if w.shape[0] % 8:  # the padded [out, in] keeps w a transposed view
+        w = pad_k(w.t()).t()
+    m = xq.shape[0]
+    pad_m = 32 - m if xq.is_cuda and m <= 16 else 0
+    if xq.shape[1] != w.shape[0] or pad_m:
+        xq = nn.functional.pad(xq, (0, w.shape[0] - xq.shape[1], 0, pad_m))
+    return torch._int_mm(xq, w)[:m]
 
 
 def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -155,10 +186,11 @@ def _register_pack(module: nn.Module, name: str, w_in_out: torch.Tensor) -> None
     """Quantise an [in, out] weight into ``module``'s buffers ``{name}_q``
     (int8, stored [out, in]: ``_int_mm`` reads its transposed view several
     times faster than an [in, out] buffer on the H100, ``chip_smoke.py``
-    phase 6) and ``{name}_scale``."""
+    phase 6; ``in`` padded to a multiple of 8, :func:`pad_k`) and
+    ``{name}_scale``."""
     with torch.no_grad():
         pack = quantize_weight(w_in_out)
-    module.register_buffer(f"{name}_q", pack["q"].t().contiguous())
+    module.register_buffer(f"{name}_q", pad_k(pack["q"].t()).contiguous())
     module.register_buffer(f"{name}_scale", pack["scale"])
 
 
@@ -290,7 +322,7 @@ class QuantVisionTower(_QuantTower):
     def set_planar(self) -> None:
         """Refresh the c-major copy of the patch kernel that
         :func:`encode_image_q_patches` reads (after ``patch_q`` changes)."""
-        perm = torch.from_numpy(patch_perm(self.cfg.vision_patch_size)).to(self.patch_q.device)
+        perm = torch.from_numpy(patch_perm(self.cfg.vision_patch_size)).to(self.patch_q.device)  # drops K's pad
         self.patch_q_planar = self.patch_q[:, perm].contiguous()
 
     def tail(self, x: torch.Tensor) -> torch.Tensor:
@@ -325,39 +357,44 @@ class QuantTextTower(_QuantTower):
         return encode_text_q(self, text)
 
 
-def _require_tower(cfg: CLIPConfig, transformer: bool) -> None:
-    """Raise unless ``cfg``'s towers are of the kind a function serves."""
-    if cfg.is_resnet:
-        raise NotImplementedError(
-            "the int8 path of the ResNet tower is not ported yet (ROADMAP.md, Slice D, Queue 1 item 14)"
-        )
-    if cfg.use_transformer != transformer:
-        kind = "transformer" if transformer else "Mixer"
-        raise ValueError(f"this int8 function serves {kind} towers; use image_quant_fns / text_quant_fns")
+def tower_kind(cfg: CLIPConfig, text: bool) -> str:
+    """``"resnet"``, ``"transformer"`` or ``"mixer"``: the kind of ``cfg``'s
+    text or vision tower (a ResNet config's text tower is a transformer)."""
+    if cfg.is_resnet and not text:
+        return "resnet"
+    return "transformer" if cfg.use_transformer else "mixer"
+
+
+def _require_tower(cfg: CLIPConfig, kind: str, text: bool) -> None:
+    """Raise unless ``cfg``'s text or vision tower is of the kind a function serves."""
+    if tower_kind(cfg, text) != kind:
+        raise ValueError(f"this int8 function serves {kind} {'text' if text else 'vision'} towers; "
+                         "use image_quant_fns / text_quant_fns")
 
 
 def quantize_vision_tower(model, a_scales: Optional[Mapping] = None) -> QuantVisionTower:
     """int8 copy of ``model``'s (a port CLIP) Mixer vision tower."""
-    _require_tower(model.cfg, transformer=False)
+    _require_tower(model.cfg, "mixer", text=False)
     return QuantVisionTower(model.visual, a_scales)
 
 
 def quantize_text_tower(model, a_scales: Optional[Mapping] = None) -> QuantTextTower:
     """int8 copy of ``model``'s Mixer text tower."""
-    _require_tower(model.cfg, transformer=False)
+    _require_tower(model.cfg, "mixer", text=True)
     return QuantTextTower(model, a_scales)
 
 
 def quantize_vit_vision_tower(model, a_scales: Optional[Mapping] = None) -> QuantVisionTower:
     """int8 copy of ``model``'s ViT vision tower: the patch embed and the
     QKV, attention-out and MLP products of every block."""
-    _require_tower(model.cfg, transformer=True)
+    _require_tower(model.cfg, "transformer", text=False)
     return QuantVisionTower(model.visual, a_scales)
 
 
 def quantize_vit_text_tower(model, a_scales: Optional[Mapping] = None) -> QuantTextTower:
-    """int8 copy of ``model``'s causally masked transformer text tower."""
-    _require_tower(model.cfg, transformer=True)
+    """int8 copy of ``model``'s causally masked transformer text tower (a
+    ViT's, or a ResNet config's)."""
+    _require_tower(model.cfg, "transformer", text=True)
     return QuantTextTower(model, a_scales)
 
 
@@ -447,7 +484,7 @@ def calibrate_vision_tower(model, sample_images: torch.Tensor, quantile: float =
     """Static activation scales of the Mixer vision tower from sample
     (normalised) images: ``{"patch": (), "ch_in": [L], "ch_hidden": [L]}``,
     each site's |activation| ``quantile`` over 127."""
-    _require_tower(model.cfg, transformer=False)
+    _require_tower(model.cfg, "mixer", text=False)
     return _calibrate_vision(model, sample_images, quantile)
 
 
@@ -455,7 +492,7 @@ def calibrate_vision_tower(model, sample_images: torch.Tensor, quantile: float =
 def calibrate_text_tower(model, sample_text: torch.Tensor, quantile: float = 0.9999) -> Dict[str, torch.Tensor]:
     """Static activation scales of the Mixer text tower from sample token
     ids: ``{"ch_in": [L], "ch_hidden": [L]}``."""
-    _require_tower(model.cfg, transformer=False)
+    _require_tower(model.cfg, "mixer", text=True)
     return _calibrate_text(model, sample_text, quantile)
 
 
@@ -464,7 +501,7 @@ def calibrate_vit_vision_tower(model, sample_images: torch.Tensor,
                                quantile: float = 0.9999) -> Dict[str, torch.Tensor]:
     """Static activation scales of the ViT vision tower: ``{"patch": (),
     "qkv_in", "attn_out_in", "mlp_in", "mlp_hidden": [L]}``."""
-    _require_tower(model.cfg, transformer=True)
+    _require_tower(model.cfg, "transformer", text=False)
     return _calibrate_vision(model, sample_images, quantile)
 
 
@@ -472,7 +509,7 @@ def calibrate_vit_vision_tower(model, sample_images: torch.Tensor,
 def calibrate_vit_text_tower(model, sample_text: torch.Tensor, quantile: float = 0.9999) -> Dict[str, torch.Tensor]:
     """Static activation scales of the transformer text tower (causal mask):
     ``{"qkv_in", "attn_out_in", "mlp_in", "mlp_hidden": [L]}``."""
-    _require_tower(model.cfg, transformer=True)
+    _require_tower(model.cfg, "transformer", text=True)
     return _calibrate_text(model, sample_text, quantile)
 
 
@@ -547,19 +584,221 @@ def encode_image_q_patches(qvis: QuantVisionTower, patches_q: torch.Tensor) -> t
     return qvis.tail(x)
 
 
+# ---- the ResNet tower: W8A8 convolutions with BatchNorm folded -----------------
+
+
+def fold_bn_into_conv(weight: torch.Tensor, bn, eps: float = BN_EPS):
+    """An inference conv + BN -> one conv with a bias, in f32:
+    ``(kernel * g, bias - mean * g)``, ``g = scale * rsqrt(var + eps)``;
+    ``weight`` OIHW, ``bn`` a ``BatchNorm`` (its running statistics)."""
+    g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + eps)
+    kernel = weight.float() * g[:, None, None, None]
+    bias = bn.bias.float() - bn.running_mean.float() * g
+    return kernel, bias
+
+
+def quantize_conv_weight(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """OIHW float -> {"q": int8 OIHW, "scale": f32 [out]}, symmetric per
+    output channel."""
+    k = kernel.float()
+    scale = torch.clamp_min(true_div(k.abs().amax(dim=(1, 2, 3)), QMAX), 1e-8)
+    q = torch.clamp(torch.round(k / scale[:, None, None, None]), -QMAX, QMAX).to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+def _scalar(v, device) -> torch.Tensor:
+    """A scale leaf (numpy, as an artifact loads it, or a tensor) -> f32 0-d on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device, torch.float32).reshape(())
+    return torch.tensor(np.asarray(v, np.float32).reshape(()), device=device)
+
+
+class QuantConv(nn.Module):
+    """One conv site of the int8 ResNet: buffers ``q`` (int8 [out, kh kw
+    cin] in an NHWC patch's (kh, kw, cin) order, padded to a multiple of 8,
+    :func:`pad_k`), ``scale`` [out], ``bias`` [out] (the folded BN's, f32)
+    and ``a`` (the input's static scale)."""
+
+    def __init__(self, conv_module: nn.Conv2d, bn, a):
+        super().__init__()
+        self.kernel_size = conv_module.kernel_size[0]
+        with torch.no_grad():
+            kernel, bias = fold_bn_into_conv(conv_module.weight, bn)
+            pack = quantize_conv_weight(kernel)
+        self.register_buffer("q", pad_k(pack["q"].permute(0, 2, 3, 1).reshape(pack["q"].shape[0], -1)).contiguous())
+        self.register_buffer("scale", pack["scale"])
+        self.register_buffer("bias", bias)
+        self.register_buffer("a", _scalar(a, bias.device))
+
+
+def conv_sums(xq: torch.Tensor, q: torch.Tensor, k: int, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """The int32 sums of a convolution of int8 NHWC ``xq`` [B, H, W, C] with
+    ``q`` [out, >= k k C] (a :class:`QuantConv`'s): the patches, gathered
+    from ``k * k`` shifted, strided views of the zero-padded input, times
+    the weight by ``torch._int_mm``. -> int32 [B, H', W', out]."""
+    B, H, W, C = xq.shape
+    if padding:
+        xq = nn.functional.pad(xq, (0, 0, padding, padding, padding, padding))
+    ho, wo = (H + 2 * padding - k) // stride + 1, (W + 2 * padding - k) // stride + 1
+    if k == 1 and stride == 1:
+        patches = xq.reshape(B * H * W, C)
+    else:
+        taps = [xq[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]
+                for i in range(k) for j in range(k)]
+        patches = torch.stack(taps, dim=3).reshape(B * ho * wo, k * k * C)
+    return int_mm(patches, q.t()).reshape(B, ho, wo, -1)
+
+
+def int8_conv(x: torch.Tensor, qc: QuantConv, stride: int = 1, padding: int = 0,
+              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """y = conv(x, dequant(qc)) + bias as s8 x s8 -> s32 on NHWC ``x``: the
+    input quantised at ``qc.a``, the sums dequantised as
+    ``acc * (a * scale) + bias`` in f32, then cast to ``out_dtype``."""
+    xq = quantize_activation(x.float(), qc.a)
+    acc = conv_sums(xq, qc.q, qc.kernel_size, stride, padding)
+    return (acc.float() * (qc.a * qc.scale) + qc.bias).to(out_dtype)
+
+
+class QuantBottleneck(nn.Module):
+    """A ``Bottleneck``'s convs as :class:`QuantConv` (``downsample``: the
+    branch's conv, None without one)."""
+
+    def __init__(self, block, scales: Mapping):
+        super().__init__()
+        self.stride = block.stride
+        self.conv1 = QuantConv(block.conv1, block.bn1, scales["conv1"])
+        self.conv2 = QuantConv(block.conv2, block.bn2, scales["conv2"])
+        self.conv3 = QuantConv(block.conv3, block.bn3, scales["conv3"])
+        self.downsample = None
+        if block.downsample is not None:
+            self.downsample = QuantConv(block.downsample[0], block.downsample[1], scales["downsample"])
+
+
+class QuantResNet(nn.Module):
+    """The int8 ResNet vision tower of a float ``ModifiedResNet``: every
+    conv's BN folded and quantised (:class:`QuantConv`), the attention pool
+    the float tower's module. ``a_scales``: the tree of
+    :func:`calibrate_resnet_tower` (tensor or numpy leaves; required, as
+    in the JAX package)."""
+
+    def __init__(self, visual, a_scales: Mapping):
+        super().__init__()
+        self.cfg = visual.cfg
+        for i in (1, 2, 3):
+            setattr(self, f"conv{i}", QuantConv(getattr(visual, f"conv{i}"), getattr(visual, f"bn{i}"),
+                                                a_scales[f"conv{i}"]))
+        for i in range(1, 5):
+            stage = getattr(visual, f"layer{i}")
+            setattr(self, f"layer{i}", nn.ModuleList(QuantBottleneck(blk, a_scales[f"layer{i}"][b])
+                                                     for b, blk in enumerate(stage)))
+        self.attnpool = visual.attnpool
+
+    def blocks(self):
+        return [blk for i in range(1, 5) for blk in getattr(self, f"layer{i}")]
+
+    def a_scales(self) -> Dict:
+        """The activation scales as the calibration's tree."""
+        tree: Dict = {f"conv{i}": getattr(self, f"conv{i}").a for i in (1, 2, 3)}
+        for i in range(1, 5):
+            tree[f"layer{i}"] = [
+                {k: getattr(blk, k).a for k in ("conv1", "conv2", "conv3", "downsample") if getattr(blk, k) is not None}
+                for blk in getattr(self, f"layer{i}")]
+        return tree
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return encode_image_rn_q(self, images)
+
+
+def quantize_resnet_tower(model, a_scales: Mapping) -> QuantResNet:
+    """int8 copy of ``model``'s ResNet vision tower at the static scales
+    ``a_scales`` (:func:`calibrate_resnet_tower`)."""
+    _require_tower(model.cfg, "resnet", text=False)
+    return QuantResNet(model.visual, a_scales)
+
+
+@torch.no_grad()
+def encode_image_rn_q(qvis: QuantResNet, images: torch.Tensor) -> torch.Tensor:
+    """The int8 ResNet forward (``ModifiedResNet.forward`` with every conv +
+    BN an :func:`int8_conv`). images: normalised NHWC [B, R, R, 3]."""
+    dt = compute_dtype(qvis.cfg.compute_dtype)
+    relu = nn.functional.relu
+    x = images.to(dt)
+    x = relu(int8_conv(x, qvis.conv1, stride=2, padding=1, out_dtype=dt))
+    x = relu(int8_conv(x, qvis.conv2, padding=1, out_dtype=dt))
+    x = relu(int8_conv(x, qvis.conv3, padding=1, out_dtype=dt))
+    x = avg_pool(x, 2)
+    for blk in qvis.blocks():
+        out = relu(int8_conv(x, blk.conv1, out_dtype=dt))
+        out = relu(int8_conv(out, blk.conv2, padding=1, out_dtype=dt))
+        if blk.stride > 1:
+            out = avg_pool(out, blk.stride)
+        out = int8_conv(out, blk.conv3, out_dtype=dt)
+        identity = x
+        if blk.downsample is not None:
+            identity = x if blk.stride == 1 else avg_pool(x, blk.stride)
+            identity = int8_conv(identity, blk.downsample, out_dtype=dt)
+        x = relu(out + identity)
+    return attention_pool(qvis.attnpool, x)
+
+
+@torch.no_grad()
+def calibrate_resnet_tower(model, sample_images: torch.Tensor, quantile: float = 0.9999) -> Dict:
+    """The |input| ``quantile`` / 127 at every conv site, running the float
+    inference forward on sample (normalised) images: ``{"conv1", "conv2",
+    "conv3": (), "layer{i}": [{"conv1", "conv2", "conv3"[, "downsample"]}
+    per block]}``, the JAX package's tree."""
+    _require_tower(model.cfg, "resnet", text=False)
+    v = model.visual
+    relu = nn.functional.relu
+    q = functools.partial(_site_scale, q=quantile)
+    scales: Dict = {}
+    x = sample_images.to(compute_dtype(model.cfg.compute_dtype))
+    scales["conv1"] = q(x)
+    x = relu(v.bn1(conv(v.conv1.weight, x, stride=2, padding=1)))
+    scales["conv2"] = q(x)
+    x = relu(v.bn2(conv(v.conv2.weight, x, padding=1)))
+    scales["conv3"] = q(x)
+    x = relu(v.bn3(conv(v.conv3.weight, x, padding=1)))
+    x = avg_pool(x, 2)
+    for i in range(1, 5):
+        stage = []
+        for blk in getattr(v, f"layer{i}"):
+            site = {"conv1": q(x)}
+            out = relu(blk.bn1(conv(blk.conv1.weight, x)))
+            site["conv2"] = q(out)
+            out = relu(blk.bn2(conv(blk.conv2.weight, out, padding=1)))
+            if blk.stride > 1:
+                out = avg_pool(out, blk.stride)
+            site["conv3"] = q(out)
+            out = blk.bn3(conv(blk.conv3.weight, out))
+            identity = x
+            if blk.downsample is not None:
+                identity = x if blk.stride == 1 else avg_pool(x, blk.stride)
+                site["downsample"] = q(identity)
+                identity = blk.downsample[1](conv(blk.downsample[0].weight, identity))
+            x = relu(out + identity)
+            stage.append(site)
+        scales[f"layer{i}"] = stage
+    return scales
+
+
 def image_quant_fns(cfg: CLIPConfig):
     """(calibrate, quantize, encode_q) for ``cfg``'s vision tower: the one
     dispatch the gates (``evals/quant_gate.py``) and
-    ``InferenceEngine.enable_int8`` share."""
-    _require_tower(cfg, cfg.use_transformer)
-    if cfg.use_transformer:
+    ``InferenceEngine.enable_int8`` share. ``is_resnet`` is tested before
+    ``use_transformer``: a ResNet config carries ``tower="transformer"``
+    for its text side."""
+    kind = tower_kind(cfg, text=False)
+    if kind == "resnet":
+        return calibrate_resnet_tower, quantize_resnet_tower, encode_image_rn_q
+    if kind == "transformer":
         return calibrate_vit_vision_tower, quantize_vit_vision_tower, encode_image_vit_q
     return calibrate_vision_tower, quantize_vision_tower, encode_image_q
 
 
 def text_quant_fns(cfg: CLIPConfig):
-    """(calibrate, quantize, encode_q) for ``cfg``'s text tower."""
-    _require_tower(cfg, cfg.use_transformer)
-    if cfg.use_transformer:
+    """(calibrate, quantize, encode_q) for ``cfg``'s text tower: the ViT
+    text functions for a ResNet config, as in the JAX package."""
+    if tower_kind(cfg, text=True) == "transformer":
         return calibrate_vit_text_tower, quantize_vit_text_tower, encode_text_vit_q
     return calibrate_text_tower, quantize_text_tower, encode_text_q

@@ -11,8 +11,15 @@ A step runs, in order:
 3. the global gradient norm, taken before the clip;
 4. the optimiser update (clip, AdamW);
 5. the ``logit_scale`` clamp to ``TrainConfig.logit_scale_max``, after the
-   update;
-6. the EMA update, after the clamp.
+   update, then, for a ResNet vision tower, the merge of the step's batch
+   moments into the BatchNorm running statistics
+   (``models/resnet.py::apply_bn_updates``);
+6. the EMA update, after them, over the parameters and the running
+   statistics.
+
+A ResNet vision tower trains on batch moments; under ``freeze="visual"``
+it normalises with its running statistics and keeps them (``bn_eval``).
+GradCache refuses it: per-microbatch moments are not the batch's.
 
 Its parts run inside ``torch.profiler.record_function`` ranges
 (``train_step/forward``, ``/backward`` or ``/gradcache``, ``/update``),
@@ -37,10 +44,11 @@ from torch.profiler import record_function
 
 from clip_mixer_tpu_torch.config import CLIPConfig, TrainConfig
 from clip_mixer_tpu_torch.device import compute_dtype
+from clip_mixer_tpu_torch.models.resnet import apply_bn_updates
 from clip_mixer_tpu_torch.ops.augment import maybe_augment
 from clip_mixer_tpu_torch.ops.losses import contrastive_loss, loss_param_keys
 from clip_mixer_tpu_torch.ops.preprocess import normalize_images
-from clip_mixer_tpu_torch.train.optimizer import OptState, Optimizer, tower_of
+from clip_mixer_tpu_torch.train.optimizer import OptState, Optimizer, ema_sources, tower_of
 
 
 @dataclasses.dataclass
@@ -54,7 +62,8 @@ class TrainState:
 
 
 def init_train_state(model, optimizer: Optimizer) -> TrainState:
-    return TrainState(model=model, opt_state=optimizer.init(dict(model.named_parameters())), step=0)
+    return TrainState(model=model, opt_state=optimizer.init(dict(model.named_parameters()), ema_sources(model)),
+                      step=0)
 
 
 @contextlib.contextmanager
@@ -131,21 +140,29 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if accum_steps > 1 and cfg.is_resnet:
+        raise NotImplementedError(
+            "grad accumulation with BN batch stats (ResNet tower) is not supported: "
+            "per-microbatch moments are not the full-batch moments"
+        )
     dtype = compute_dtype(cfg.compute_dtype)
     keys = loss_param_keys(tcfg.loss)
+    bn_eval = tcfg.freeze == "visual"
 
     def loss_of(img, txt, scale, bias):
         return contrastive_loss(tcfg.loss, img, txt, scale, logit_bias=bias,
                                 grad_through_gather=grad_through_gather, chunk_size=chunk_size)
 
     def loss_and_grads(model, images_u8, texts):
+        """The loss (gradients in ``.grad``) and the BN batch moments."""
         if accum_steps == 1:
             with record_function("train_step/forward"):
-                img, txt, scale, _ = model.forward_train(normalize_images(images_u8, dtype), texts)
+                img, txt, scale, bn_stats = model.forward_train(normalize_images(images_u8, dtype), texts,
+                                                                bn_eval=bn_eval)
                 loss = loss_of(img, txt, scale, getattr(model, "logit_bias", None))
             with record_function("train_step/backward"):
                 loss.backward()
-            return loss.detach()
+            return loss.detach(), bn_stats
 
         def micro_feats(im_u8, tx):
             img, txt, _scale, _ = model.forward_train(normalize_images(im_u8, dtype), tx)
@@ -156,7 +173,7 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
 
         with record_function("train_step/gradcache"):
             return two_pass_accum_grads(model, accum_steps, flat_chunker(images_u8, texts, accum_steps),
-                                        micro_feats, feat_loss, loss_param_keys=keys)
+                                        micro_feats, feat_loss, loss_param_keys=keys), {}
 
     def step(state: TrainState, batch) -> tuple:
         model = state.model
@@ -168,14 +185,16 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
         for p in params.values():
             p.grad = None
         with freeze_subtree(model, tcfg.freeze):
-            loss = loss_and_grads(model, images, texts)
+            loss, bn_stats = loss_and_grads(model, images, texts)
         with record_function("train_step/update"):
             grads = {n: p.grad for n, p in params.items()}
             grad_norm = optimizer.update(params, grads, state.opt_state)
             with torch.no_grad():
                 model.logit_scale.clamp_(max=tcfg.logit_scale_max)
+            if bn_stats:
+                apply_bn_updates(model.visual, bn_stats)
             if tcfg.ema_decay:
-                optimizer.update_ema(params, state.opt_state)
+                optimizer.update_ema(ema_sources(model), state.opt_state)
         state.step += 1
         metrics = {"loss": loss, "grad_norm": grad_norm, "logit_scale": model.logit_scale.detach().exp()}
         if hasattr(model, "logit_bias"):

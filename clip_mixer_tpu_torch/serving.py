@@ -46,6 +46,7 @@ from clip_mixer_tpu_torch.ops.quant import (
     image_quant_fns,
     make_planar_front_end,
     text_quant_fns,
+    tower_kind,
 )
 from clip_mixer_tpu_torch.text.tokenize import tokenize
 
@@ -59,8 +60,8 @@ def encoder_fns(cfg: CLIPConfig, int8: bool = False, input_hw=None):
     (normalised only), else at ``input_hw`` and resized on the device by the
     ``"torch"`` preprocess. An int8 engine of Mixer towers with ``input_hw``
     takes the planar front end instead (resize -> int8 patches at the
-    tower's calibrated patch scale); a ViT int8 engine keeps the float
-    front end, as the JAX package's."""
+    tower's calibrated patch scale); a ViT or ResNet int8 engine keeps the
+    float front end, as the JAX package's."""
     dt = compute_dtype(cfg.compute_dtype)
     if input_hw is None:
         def to_model_inputs(images_u8):
@@ -79,7 +80,7 @@ def encoder_fns(cfg: CLIPConfig, int8: bool = False, input_hw=None):
 
     encode_image = image_quant_fns(cfg)[2]
     encode_text = text_quant_fns(cfg)[2]
-    if input_hw is not None and not cfg.use_transformer:
+    if input_hw is not None and tower_kind(cfg, text=False) == "mixer":
         front = make_planar_front_end(cfg, tuple(input_hw))
 
         def image_fn(qvis, images_u8):
@@ -110,9 +111,14 @@ def _topk(row: np.ndarray, k: int) -> np.ndarray:
     return idx[np.argsort(-row[idx])]
 
 
-def _numpy_tree(scales) -> dict:
-    """A calibration's scale tensors as f32 numpy (an artifact's leaves)."""
-    return {k: v.float().cpu().numpy() for k, v in scales.items()}
+def _numpy_tree(scales):
+    """A calibration's scale tree (dicts and lists of tensors) with f32
+    numpy leaves (an artifact's)."""
+    if isinstance(scales, dict):
+        return {k: _numpy_tree(v) for k, v in scales.items()}
+    if isinstance(scales, (list, tuple)):
+        return [_numpy_tree(v) for v in scales]
+    return scales.float().cpu().numpy()
 
 
 _NPY_MAGIC = b"\x93NUMPY"
@@ -168,7 +174,7 @@ class InferenceEngine:
         save_calibration: Optional[str] = None,
     ) -> None:
         """Switch each tower that has activation scales to the calibrated
-        W8A8 path (``ops/quant.py``; Mixer or ViT towers).
+        W8A8 path (``ops/quant.py``; Mixer, ViT or ResNet towers).
 
         Scales come from ``calibration``, a ``.npz`` artifact written by
         ``save_calibration=`` here or by the JAX package (its architecture

@@ -11,12 +11,17 @@ numbers:
   with ``ndim >= 2`` (:func:`decay_mask`; the port's blocks are not stacked,
   so the JAX mask's correction for stacked layers has no counterpart here);
 - with ``TrainConfig.freeze``, the frozen tower gets no moments and no
-  decay; with ``TrainConfig.ema_decay``, the state carries an EMA of the
-  parameters that the train step updates after the step's fixups.
+  decay; with ``TrainConfig.ema_decay``, the state carries an EMA that the
+  train step updates after the step's fixups.
 
 Parameters are the model's ``named_parameters()`` (state-dict keys, f32
 masters); the update is in place with ``torch._foreach_*`` ops, the same
-code on the card and on the CPU.
+code on the card and on the CPU. A ResNet's BatchNorm running statistics
+are buffers, not parameters: they get no moments, no update and no decay,
+as in the JAX tree, where they are leaves whose gradient is zero. The EMA
+runs over the model's whole float state (:func:`ema_sources`: the
+parameters and those running statistics), as the JAX ``update_ema`` runs
+over the whole param tree.
 """
 
 from __future__ import annotations
@@ -46,6 +51,13 @@ def tower_of(name: str) -> Optional[str]:
     return None
 
 
+def ema_sources(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """What the EMA averages: every float tensor of ``model``'s state dict
+    (the parameters and the persistent float buffers, i.e. the BatchNorm
+    running statistics), by state-dict key."""
+    return {k: v for k, v in model.state_dict(keep_vars=True).items() if v.is_floating_point()}
+
+
 def _bias_correction(beta: float, count: int) -> float:
     """1 - beta**count, in f32 as optax computes it."""
     return float(np.float32(1.0) - np.float32(beta) ** np.float32(count))
@@ -60,7 +72,7 @@ def decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
 @dataclasses.dataclass
 class OptState:
     """``count`` updates applied; Adam's moments of the trainable
-    parameters; the EMA of every parameter, or None."""
+    parameters; the EMA of every parameter and running statistic, or None."""
 
     count: int
     mu: Dict[str, torch.Tensor]
@@ -80,11 +92,14 @@ class Optimizer:
     def trainable(self, name: str) -> bool:
         return self.tcfg.freeze is None or tower_of(name) != self.tcfg.freeze
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+    def init(self, params: Mapping[str, torch.Tensor],
+             ema_from: Optional[Mapping[str, torch.Tensor]] = None) -> OptState:
+        """The state for ``params``; the EMA (when on) starts as a copy of
+        ``ema_from`` (:func:`ema_sources` of the model), ``params`` when None."""
         live = {n: p for n, p in params.items() if self.trainable(n)}
         ema = None
         if self.tcfg.ema_decay:
-            ema = {n: p.detach().clone() for n, p in params.items()}
+            ema = {n: p.detach().clone() for n, p in (params if ema_from is None else ema_from).items()}
         return OptState(
             count=0,
             mu={n: torch.zeros_like(p, memory_format=torch.preserve_format) for n, p in live.items()},
@@ -127,8 +142,9 @@ class Optimizer:
 
     @torch.no_grad()
     def update_ema(self, params: Mapping[str, torch.Tensor], state: OptState) -> None:
-        """e = decay * e + (1 - decay) * p for every parameter, after the
-        step's fixups (the ``logit_scale`` clamp)."""
+        """e = decay * e + (1 - decay) * p for every tensor the EMA holds
+        (``params`` maps each of their keys, :func:`ema_sources`), after the
+        step's fixups (the ``logit_scale`` clamp, the running-stat merge)."""
         names = list(state.ema)
         emas = [state.ema[n] for n in names]
         torch._foreach_mul_(emas, self.tcfg.ema_decay)

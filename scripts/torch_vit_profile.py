@@ -37,7 +37,21 @@ def _self_device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profile_tower(fn, iters: int, top: int) -> dict:
+def by_kind(prof_rows, iters: int) -> dict:
+    """Self device ms a call by ``KINDS`` from ``key_averages()`` rows."""
+    out = {k: 0.0 for k in (*KINDS, "elementwise")}
+    for e in prof_rows:
+        us = _self_device_us(e)
+        if us <= 0 or not e.key.startswith("aten::"):
+            continue
+        kind = next((k for k, ops in KINDS.items() if e.key in ops), "elementwise")
+        out[kind] += us / 1e3 / iters
+    return out
+
+
+def profile_tower(fn, iters: int, top: int, kinds=by_kind) -> dict:
+    """``fn`` profiled over ``iters`` calls; ``kinds(key_averages(), iters)``
+    sorts the device time by kind of op."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -51,13 +65,6 @@ def profile_tower(fn, iters: int, top: int) -> dict:
     wall_ms = start.elapsed_time(end) / iters
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
-    by_kind = {k: 0.0 for k in (*KINDS, "elementwise")}
-    for e in prof.key_averages():
-        us = _self_device_us(e)
-        if us <= 0 or not e.key.startswith("aten::"):
-            continue
-        kind = next((k for k, ops in KINDS.items() if e.key in ops), "elementwise")
-        by_kind[kind] += us / 1e3 / iters
     by_name = {}
     for e in kernels:
         c = by_name.setdefault(e.name, [0, 0.0])
@@ -68,7 +75,7 @@ def profile_tower(fn, iters: int, top: int) -> dict:
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,  # one stream: kernels do not overlap
-        "device_ms_by_kind": by_kind,
+        "device_ms_by_kind": kinds(prof.key_averages(), iters),
         "kernels": [{"name": n[:120], "calls": c // iters, "ms": us / 1e3 / iters} for n, (c, us) in top_kernels],
     }
 

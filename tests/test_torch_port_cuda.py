@@ -498,3 +498,75 @@ def test_vit_int8_encoders_on_the_card_match_the_cpu(cuda, patch):
                       (tq.encode_text_q(qt, text.to(cuda)), tq.encode_text_q(qt_cpu, text))):
         cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want.float(), dim=-1)
         assert float(cos.min()) >= 0.999, float(cos.min())
+
+
+# ---- the ResNet tower ----------------------------------------------------------------
+
+
+def _rn_model(device, dtype, seed=6):
+    """A small ResNet CLIP from a seed, every BN site's statistics and affine
+    drawn from a numpy seed (the init's bn3 scales are 0)."""
+    from clip_mixer_tpu_torch import CLIP, CLIPConfig
+
+    cfg = CLIPConfig(embed_dim=32, image_resolution=64, vision_layers=(1, 1, 1, 1), vision_width=16,
+                     vision_patch_size=None, context_length=77, vocab_size=49408, text_width=64, text_heads=1,
+                     text_layers=1, tower="transformer", compute_dtype=dtype)
+    model = CLIP(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for bn in model.visual.bn_sites().values():
+            c = bn.num_features
+            for t, draw in ((bn.weight, rng.uniform(0.5, 1.5, c)), (bn.bias, rng.normal(0, 0.1, c)),
+                            (bn.running_mean, rng.normal(0, 0.2, c)), (bn.running_var, rng.uniform(0.5, 2.0, c))):
+                t.copy_(torch.from_numpy(draw.astype(np.float32)))
+    return model.to(device).eval()
+
+
+def _rn_images(n=4, seed=8):
+    return torch.from_numpy(np.random.default_rng(seed).normal(0, 1, (n, 64, 64, 3)).astype(np.float32))
+
+
+def test_rn_f32_tower_on_the_card_matches_the_cpu(cuda):
+    """f32 convolutions on the card run without TF32 (the port switches it
+    off around them, whatever the global flag says): per-row cosine >=
+    0.99999 against the CPU."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        images = _rn_images()
+        with torch.inference_mode():
+            want = _rn_model("cpu", "float32").encode_image(images)
+            got = _rn_model(cuda, "float32").encode_image(images.to(cuda)).cpu()
+        assert torch.backends.cudnn.allow_tf32  # restored
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert float(cos.min()) >= 0.99999, float(cos.min())
+
+
+def test_rn_int8_conv_sums_on_the_card_equal_the_cpu(cuda):
+    """The im2col into ``torch._int_mm``: the same int32 sums on both
+    devices, stem (K = 27) and a 3x3 and a 1x1 site."""
+    from clip_mixer_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(9)
+    for k, cin, stride, padding in ((3, 3, 2, 1), (3, 64, 1, 1), (1, 256, 1, 0)):
+        xq = torch.from_numpy(rng.integers(-127, 128, (4, 28, 28, cin)).astype(np.int8))
+        q = tq.pad_k(torch.from_numpy(rng.integers(-127, 128, (64, k * k * cin)).astype(np.int8)))
+        want = tq.conv_sums(xq, q, k, stride, padding)
+        got = tq.conv_sums(xq.to(cuda), q.to(cuda), k, stride, padding)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_rn_int8_tower_on_the_card_matches_the_cpu(cuda):
+    """bf16, the same int8 weights and scales on both devices (the CPU's
+    quantised tower moved to the card): per-row cosine >= 0.999."""
+    from clip_mixer_tpu_torch.ops import quant as tq
+
+    images = _rn_images().to(torch.bfloat16)
+    cpu = _rn_model("cpu", "bfloat16")
+    q_cpu = tq.quantize_resnet_tower(cpu, tq.calibrate_resnet_tower(cpu, images))
+    q_card = copy.deepcopy(q_cpu).to(cuda)
+    got, want = tq.encode_image_rn_q(q_card, images.to(cuda)), tq.encode_image_rn_q(q_cpu, images)
+    cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want.float(), dim=-1)
+    assert float(cos.min()) >= 0.999, float(cos.min())

@@ -273,11 +273,29 @@ TRANSFORMER_PRESETS = {"transformer-b32": 151_277_313, "vit-b32": 151_277_313, "
                        "vit-l14": 427_616_513, "vit-l14-336": 427_944_193}
 
 
+# every ResNet preset
+RESNET_PRESETS = ("rn50", "rn101", "rn50x4", "rn50x16", "rn50x64")
+
+
+def _jax_leaf_elements(name):
+    """The element count of the JAX init's tree for preset ``name``, read
+    through ``jax.eval_shape`` (no full-size JAX init runs)."""
+    shapes = jax.eval_shape(lambda key: jclip.init(key, jcfg.PRESETS[name]), jax.random.key(0))
+    return sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes))
+
+
 def test_transformer_and_resnet_configs_raise():
-    """Since the transformer towers are ported, only the ResNet tower raises
-    (naming its slice); every transformer preset builds at full size."""
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        CLIP(tcfg.PRESETS["rn50"], device="cpu")
+    """Neither tower kind raises any more: every transformer preset builds
+    at full size with its parameter count, and every ResNet preset builds
+    at full size with its parameters plus its BatchNorm running statistics
+    as many elements as the JAX tree, which holds those statistics as
+    leaves."""
+    for name in RESNET_PRESETS:
+        model = CLIP(tcfg.PRESETS[name], device="cpu")
+        running = sum(b.numel() for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var")))
+        assert sum(p.numel() for p in model.parameters()) + running == _jax_leaf_elements(name), name
+        assert [len(getattr(model.visual, f"layer{i}")) for i in range(1, 5)] == list(tcfg.PRESETS[name].vision_layers)
+        del model
     for name, n_params in TRANSFORMER_PRESETS.items():
         model = CLIP(tcfg.PRESETS[name], device="cpu")
         assert sum(p.numel() for p in model.parameters()) == n_params, name

@@ -248,17 +248,17 @@ def test_quant_towers_share_the_float_modules():
 @pytest.mark.parametrize("tower,layers", [("transformer", 2), ("transformer", (1, 1, 1, 1))],
                          ids=["transformer", "resnet"])
 def test_other_towers_raise_naming_slice_d(tower, layers):
-    """The ResNet tower's int8 path still raises, naming its slice; since the
-    ViT half is ported, a transformer config dispatches to it, as the JAX
-    package's ``image_quant_fns`` / ``text_quant_fns`` do."""
+    """No tower kind raises any more: a transformer config dispatches to the
+    ViT functions, and a ResNet config (``tower="transformer"`` for its
+    text side) to the ResNet image functions and the ViT text functions,
+    as the JAX package's ``image_quant_fns`` / ``text_quant_fns`` do."""
     cfg = CLIPConfig(**dict(CFG, tower=tower, vision_layers=layers))
     jc = JaxConfig(**dict(CFG, tower=tower, vision_layers=layers))
     for fns, jfns in ((tq.image_quant_fns, jq.image_quant_fns), (tq.text_quant_fns, jq.text_quant_fns)):
-        if cfg.is_resnet:
-            with pytest.raises(NotImplementedError, match="Slice D"):
-                fns(cfg)
-        else:
-            assert fns(cfg) == tuple(getattr(tq, f.__name__) for f in jfns(jc))
+        assert fns(cfg) == tuple(getattr(tq, f.__name__) for f in jfns(jc))
+    if cfg.is_resnet:
+        assert tq.image_quant_fns(cfg)[2] is tq.encode_image_rn_q
+        assert tq.text_quant_fns(cfg)[1] is tq.quantize_vit_text_tower
 
 
 # ---- the planar front end ----------------------------------------------------
