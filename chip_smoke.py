@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths
-on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
+its model loading and its serving CLI on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 1. Build every ``clip_mixer_tpu_torch/csrc/*.cu`` with ``nvcc`` (one process
    per source, all started together) and hold each kernel against its plain
    PyTorch version on the card at the shapes the serving and training paths
-   give it (``ln_mlp`` at both towers' buckets 128 and 8 and at the train
+   give it (``ln_mlp`` at both towers' buckets 128 and 8 (the text tower's
+   bucket 8 is what the serving CLI's text requests send) and at the train
    batches 256 and 4096, ``preprocess`` at B = 128, 8 and 1 and at other
    input shapes, odd widths too, in bf16 and f32, at 384x384 -> 336
    (``vit-l14-336``'s output size) in bf16, and at the ResNet presets'
@@ -174,6 +175,33 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    step ms, images a second, peak memory and ``train_mfu`` from
    ``rn_flops``.
 
+9. Model loading and the serving CLI, full-width Mixer-B/32 (seed-0
+   weights, ``ln_final`` drawn from a numpy seed). 9a: the state dict as a
+   reference-keyed fp16 ``.pt`` and as an Accelerate directory
+   (``pytorch_model.bin``, ``{"state_dict"}`` with ``module.`` keys), each
+   through ``api.load`` on the card: the sniffed config is the preset's,
+   every tensor the fp16 value in f32, the two loads' features identical
+   (a file with ``ln_final.bias`` zeroed must fail that check); f32 files
+   of the seed ViT-B/32 and RN50 (BN drawn, ``num_batches_tracked`` left
+   out) loaded and run at B = 2 against their source models (cosine >=
+   0.99999). 9b: ``compat.load(<the .pt>, device="cuda")``, bf16, its
+   triple on uint8 NHWC images against the engine's features (>= 0.999).
+   9c: ``scripts/torch_calibrate_int8.py``'s ``run`` on 512 synthetic
+   samples (the text tower only if phase 6's text gate passed), and
+   ``scripts/torch_embed_dataset.py``'s ``embed`` over a tar of 1,024
+   ``.npy`` 256x256 images through the int8 engine on 256x256 sources.
+   9d: an export with ``fused_mlp=True`` served by ``build_server``
+   (``--int8 --index --warmup --classifier --input-size 256``) in-process;
+   with every launch counter set to 0 first, the port's ``ServingClient``
+   calls every endpoint, each answer held to an in-process engine on the
+   same export and artifact (cosine >= 0.99999, the same classify labels
+   and retrieve ids) and the features also to an engine on the same
+   weights and artifact with the unfused channel mix (cosine >= 0.999),
+   and ``ln_mlp`` must launch 12 times for each call of
+   a tower served bf16 and never for an int8 one; then ``python -m
+   clip_mixer_tpu_torch.serving`` in a subprocess, timed to its first
+   ``/healthz`` and asked one ``/encode_text``.
+
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits 1 before doing anything.
@@ -181,8 +209,10 @@ Without a CUDA device it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import base64
 import copy
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -227,6 +257,7 @@ LN_MLP_CASES = [
     ("vision_b4096", 4096 * 50, 768, 3072, torch.bfloat16),
     ("text_b4096", 4096 * 77, 512, 2048, torch.bfloat16),
     ("vision_b8", 8 * 50, 768, 3072, torch.bfloat16),
+    ("text_b8", 8 * 77, 512, 2048, torch.bfloat16),  # the serving CLI's text requests (5 captions, bucket 8)
     ("ragged", 3 * 77, 512, 2048, torch.bfloat16),
     ("narrow", 151, 384, 1536, torch.bfloat16),  # W % 256 != 0: GEMM 2 on 128-column tiles
     ("f32", 8 * 50, 768, 3072, torch.float32),
@@ -2831,6 +2862,381 @@ def rn_path(dev, counters):
     return out
 
 
+
+# ---- phase 9: model loading, compat, the tools and the serving CLI ----------------
+
+LOAD_COSINE = 0.99999  # per row, f32: a loaded ViT-B/32 / RN50 on the card against its source model
+COMPAT_COSINE = 0.999  # per row: compat's bf16 triple against the engine's features
+CLI_COSINE = 0.99999  # per row: the CLI's answers against an in-process engine on the same export and artifact
+LOAD_B = 2
+CLI_IMAGES = 8
+CLI_CLASSES = 16  # of GATE_CLASSES, each through PROMPT_TEMPLATES
+CALIB_N = 512
+EMBED_N = 1024  # .npy 256x256 images in the bank's tar
+EMBED_BATCH = 256
+SERVE_TIMEOUT_S = 300
+SERVE_ARGS = []  # extra CLI flags for both servers (a CPU rehearsal passes --device cpu)
+
+
+def ln_final_perturbed(model, seed=9):
+    """``ln_final`` drawn from a numpy seed (the init's is 1 / 0, where a
+    zeroed bias would be no fault)."""
+    rng = np.random.default_rng(seed)
+    w = model.cfg.text_width
+    with torch.no_grad():
+        model.ln_final.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, w).astype(np.float32)))
+        model.ln_final.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, w).astype(np.float32)))
+    return model
+
+
+def timed_load(path, dev, **kw):
+    """``api.load`` of ``path`` on ``dev``: (model, cfg, ms, peak GB)."""
+    from clip_mixer_tpu_torch import api
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, cfg, _ = api.load(path, device=dev, **kw)
+    torch.cuda.synchronize()
+    return model, cfg, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+
+def mixer_features(model, images, texts):
+    """Unnormalised bf16 (image, text) features of a Mixer-B/32 model."""
+    from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    with torch.inference_mode():
+        x = normalize_images(torch.from_numpy(images).to(model.device), dtype=torch.bfloat16)
+        t = torch.from_numpy(tokenize(texts, model.cfg.context_length, truncate=True)).to(model.device)
+        return model.encode_image(x).float().cpu(), model.encode_text(t).float().cpu()
+
+
+def row_cosine(a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(torch.as_tensor(a).double(), torch.as_tensor(b).double(),
+                                                       dim=-1).min())
+
+
+def load_tower_kinds(dev, root):
+    """Reference-keyed f32 files of the port's seed ViT-B/32 and RN50 (the
+    RN50's BN sites drawn, its ``num_batches_tracked`` left out): sniffed,
+    loaded on the card, one f32 forward at B = 2 against the source model."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+
+    out = {}
+    for name in (VIT_PRESET, RN_PRESET):
+        cfg = PRESETS[name].replace(compute_dtype="float32")
+        if name == RN_PRESET:
+            src = rn_model(dev, cfg)
+        else:
+            src = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        sd = {k: v.detach().cpu() for k, v in src.state_dict().items() if not k.endswith("num_batches_tracked")}
+        path = f"{root}/{name}.pt"
+        torch.save(sd, path)
+        model, got, ms, peak = timed_load(path, dev, compute_dtype="float32")
+        arch = {f: getattr(got, f) for f in ("vision_layers", "vision_width", "vision_patch_size",
+                                             "image_resolution", "embed_dim", "text_width", "text_layers", "tower")}
+        require(got == cfg, f"{name}: sniffed {arch}, not the preset's architecture")
+        rng = np.random.default_rng(3)
+        R = cfg.image_resolution
+        x = torch.from_numpy(rng.normal(0, 1, (LOAD_B, R, R, 3)).astype(np.float32)).to(dev)
+        t = torch.from_numpy(tokenize_texts(TEXTS[:LOAD_B], cfg.context_length)).to(dev)
+        with torch.inference_mode():
+            cos = {"image": row_cosine(model.encode_image(x).cpu(), src.encode_image(x).cpu()),
+                   "text": row_cosine(model.encode_text(t).cpu(), src.encode_text(t).cpu())}
+        for k, v in cos.items():
+            require(v >= LOAD_COSINE, f"{name} loaded {k} features against the source: cosine {v} < {LOAD_COSINE}")
+        out[name] = {"load_ms": ms, "peak_gb": peak, "min_cosine_vs_source": cos, "file_mb": os.path.getsize(path) / 1e6}
+        del src, model
+        os.remove(path)
+        free_card()
+    return out
+
+
+def tokenize_texts(texts, context_length):
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    return tokenize(texts, context_length, truncate=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_subprocess(export, dev, log_path):
+    """``python -m clip_mixer_tpu_torch.serving`` on the card in a process of
+    its own (its standard error to ``log_path``): ms to its first answered
+    /healthz, and one /encode_text."""
+    from clip_mixer_tpu_torch.client import ServingClient
+
+    port = free_port()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "clip_mixer_tpu_torch.serving", "--model", export,
+                                 "--port", str(port), *SERVE_ARGS], cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        client = ServingClient(f"http://127.0.0.1:{port}", timeout=60, retries=0)
+        health = None
+        while health is None:
+            if proc.poll() is not None:
+                with open(log_path) as f:
+                    require(False, f"the serving CLI exited {proc.returncode}: {f.read()[-4000:]}")
+            require(time.perf_counter() - t0 < SERVE_TIMEOUT_S, "the serving CLI never answered /healthz")
+            try:
+                health = client.healthz()
+            except Exception:
+                time.sleep(0.2)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        require(health["status"] == "ok" and health["device"].split(":")[0] == dev.type, health)
+        feats = client.encode_text(TEXTS[:2])
+        check_features(feats, 2, health["embed_dim"], "CLI subprocess /encode_text")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return {"first_healthz_ms": first_ms, "rc_after_terminate": proc.returncode}
+
+
+def cli_requests(server, engine, ref, plain, images, counters):
+    """Every endpoint through the port's client against the CLI's server,
+    each answer held to ``ref`` (the same export and artifact) and the
+    features also to ``plain`` (the same weights and artifact with the
+    unfused channel mix, so ``ln_mlp`` at the shapes these requests send
+    is held to the plain chain); returns (readings, launches over the
+    requests, the expected launches)."""
+    from clip_mixer_tpu_torch.client import ServingClient
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    texts = TEXTS[:5]
+    blobs = [base64.b64decode(b) for b in npy_b64(images)]
+    ms, cos = {}, {}
+
+    def call(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    try:
+        c = ServingClient(f"http://127.0.0.1:{server.server_address[1]}", timeout=300)
+        counters.reset()
+        before = counters.read()
+        health = call("healthz", c.healthz)
+        require(health["paths"] == engine.path_kinds and health["input_hw"] == [256, 256], health)
+        text = call("encode_text", lambda: c.encode_text(texts))
+        image = call("encode_image", lambda: c.encode_image_files(blobs))
+        sim = call("similarity", lambda: c.similarity(blobs[:3], texts[:4]))
+        got_cls = call("classify", lambda: c.classify(blobs, top_k=5))
+        got_ret = call("retrieve", lambda: c.retrieve(texts, top_k=5))
+        n_index = call("index", lambda: c.index(blobs, [f"q{i}" for i in range(len(blobs))]))
+        metrics = call("metrics", c.metrics)
+        after = counters.read()
+        index_size = c.healthz()["index_size"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    per_call = {k: 12 if v == "float" else 0 for k, v in engine.path_kinds.items()}
+    want = per_call["text"] * 3 + per_call["image"] * 4  # text: encode_text, similarity, retrieve
+    launches = {k: after[k] - before[k] for k in after}
+
+    cos["encode_text"] = row_cosine(text, ref.encode_text(texts))
+    ref_img = ref.encode_image_arrays(images)
+    cos["encode_image"] = row_cosine(image, ref_img)
+    ref_sim = 100.0 * ref_img[:3] @ ref.encode_text(texts[:4]).T
+    cos["similarity"] = row_cosine(sim["logits_per_image"], ref_sim)
+    for k, v in cos.items():
+        require(v >= CLI_COSINE, f"CLI {k}: cosine {v} against the in-process engine < {CLI_COSINE}")
+    b = counters.read()
+    plain_img = plain.encode_image_arrays(images)
+    cos_plain = {"encode_text": row_cosine(text, plain.encode_text(texts)),
+                 "encode_image": row_cosine(image, plain_img),
+                 "similarity": row_cosine(sim["logits_per_image"],
+                                          100.0 * plain_img[:3] @ plain.encode_text(texts[:4]).T)}
+    require(counters.read()["ln_mlp"] == b["ln_mlp"], "the unfused engine launched ln_mlp")
+    for k, v in cos_plain.items():
+        require(v >= COSINE_MIN, f"CLI {k}: cosine {v} against the unfused engine < {COSINE_MIN}")
+    def labels(rows, key):
+        return [[r[key] for r in row] for row in rows]
+
+    require(labels(got_cls, "label") == labels(ref.classify(images, top_k=5), "label"),
+            "CLI /classify labels differ from the in-process engine's")
+    require(labels(got_ret, "id") == labels(ref.retrieve(texts, top_k=5), "id"),
+            "CLI /retrieve ids differ from the in-process engine's")
+    require(n_index == len(blobs) and index_size == len(blobs), f"/index {n_index}, index_size {index_size}")
+    for ep in ("/encode_text", "/encode_image", "/similarity", "/classify", "/retrieve", "/index"):
+        require(metrics[ep]["count"] == 1 and metrics[ep]["errors"] == 0, f"{ep}: {metrics.get(ep)}")
+    require(launches["ln_mlp"] == want, f"CLI requests: ln_mlp launched {launches['ln_mlp']} times, expected {want} "
+            f"(paths {engine.path_kinds})")
+    require(launches["preprocess"] == 0 and launches["fused_mixer_block"] == 0, f"CLI requests: {launches}")
+    return {"request_ms": ms, "min_cosine_vs_engine": cos, "min_cosine_vs_unfused": cos_plain,
+            "paths": dict(engine.path_kinds),
+            "server_p50_ms": {ep: m["p50_ms"] for ep, m in metrics.items()}}, launches, want
+
+
+def load_cli_path(dev, counters, text_int8=False):
+    """Phase 9: ``api.load`` of reference-keyed files, ``compat``, the
+    calibration and bank tools, and the serving CLI, on full-width
+    Mixer-B/32. ``text_int8``: phase 6's text gate passed, so the
+    artifact covers the text tower too."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from clip_mixer_tpu_torch import CLIP, PRESETS, compat
+    from clip_mixer_tpu_torch.api import save_pretrained
+    from clip_mixer_tpu_torch.evals.prompts import PROMPT_TEMPLATES
+    from clip_mixer_tpu_torch.serving import InferenceEngine, build_server
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                                         "scripts", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["mixer-b32"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_load_")
+    out = {}
+    rng = np.random.default_rng(11)
+    model_images = rng.integers(0, 256, (CLI_IMAGES, cfg.image_resolution, cfg.image_resolution, 3), dtype=np.uint8)
+    try:
+        # 9a: reference-keyed fp16 files in two wrappings
+        src = ln_final_perturbed(CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0)))
+        half = {k: v.detach().half().cpu() for k, v in src.state_dict().items()}
+        del src
+        pt, acc = f"{root}/mixer_b32_fp16.pt", f"{root}/accelerate"
+        torch.save(half, pt)
+        os.makedirs(acc)
+        torch.save({"state_dict": {f"module.{k}": v for k, v in half.items()}}, f"{acc}/pytorch_model.bin")
+        loads, feats = {}, {}
+        for wrap, path in (("pt", pt), ("accelerate_dir", acc)):
+            model, got, ms, peak = timed_load(path, dev)
+            require(got == cfg, f"{wrap}: sniffed {got}, not mixer-b32's architecture")
+            sd = model.state_dict()
+            bad = [k for k, v in half.items() if not torch.equal(sd[k].cpu(), v.float())]
+            require(not bad and sd.keys() == half.keys(), f"{wrap}: tensors not the fp16 file's in f32: {bad[:5]}")
+            feats[wrap] = mixer_features(model, model_images, TEXTS[:5])
+            loads[wrap] = {"load_ms": ms, "peak_gb": peak}
+            if wrap == "pt":
+                loaded = model
+            del model
+        for a, b in zip(feats["pt"], feats["accelerate_dir"]):
+            require(torch.equal(a, b), "the two wrappings' features differ")
+        bad_path = f"{root}/fault.pt"
+        torch.save({**half, "ln_final.bias": torch.zeros_like(half["ln_final.bias"])}, bad_path)
+        fault, _, _, _ = timed_load(bad_path, dev)
+        fault_img, fault_txt = mixer_features(fault, model_images, TEXTS[:5])
+        fault_equal = torch.equal(fault_txt, feats["pt"][1])
+        require(not fault_equal, "planted fault: a file with ln_final.bias zeroed passed the feature check")
+        loads["fault_text_min_cosine"] = row_cosine(fault_txt, feats["pt"][1])
+        loads["fault_image_equal"] = bool(torch.equal(fault_img, feats["pt"][0]))
+        del fault
+        os.remove(bad_path)
+        out["load"] = loads
+        out["load_tower_kinds"] = load_tower_kinds(dev, root)
+        log(f"phase 9a load: {out['load']} {out['load_tower_kinds']}")
+
+        # 9b: compat on the card, against the engine on the loaded model
+        cm, _ = compat.load(pt, device=str(dev))
+        require(cm.dtype == torch.bfloat16 and cm.device.type == dev.type, f"compat: {cm.dtype} on {cm.device}")
+        img_f, txt_f, scale = cm(torch.from_numpy(model_images), compat.tokenize(TEXTS[:5]))
+        require(img_f.device.type == dev.type, "compat outputs left the card")
+        engine = InferenceEngine(loaded)
+        cos = {"image": row_cosine(img_f.cpu(), engine.encode_image_arrays(model_images)),
+               "text": row_cosine(txt_f.cpu(), engine.encode_text(TEXTS[:5]))}
+        for k, v in cos.items():
+            require(v >= COMPAT_COSINE, f"compat {k}: cosine {v} against the engine < {COMPAT_COSINE}")
+        out["compat"] = {"min_cosine_vs_engine": cos, "logit_scale": float(scale)}
+        del cm, engine
+
+        # 9c: the tools: the artifact (text only if its gate passed), then the bank
+        export = f"{root}/export"
+        save_pretrained(loaded, cfg.replace(fused_mlp=True), export)
+        art = f"{root}/scales.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        script("torch_calibrate_int8").run(loaded, cfg, art, n=CALIB_N, no_text=not text_int8)
+        out["calibrate_ms"] = (time.perf_counter() - t0) * 1e3
+        del loaded
+        free_card()
+        tar_path, bank = f"{root}/bank_shard.tar", f"{root}/bank.npz"
+        write_npy_tar(tar_path, EMBED_N)
+        emb = script("torch_embed_dataset")
+        served, _, _ = timed_load(export, dev)[:3]
+        embed_engine = InferenceEngine(served, batch_buckets=(EMBED_BATCH,), input_hw=(256, 256))
+        embed_engine.enable_int8(calibration=art)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats_bank, ids, skipped, meta = emb.embed(embed_engine, [tar_path], batch=EMBED_BATCH, source=export)
+        embed_s = time.perf_counter() - t0
+        emb.write_bank(bank, feats_bank, ids, meta)
+        require(len(ids) == EMBED_N and not skipped, f"bank: {len(ids)} ids, {len(skipped)} skipped")
+        check_features(feats_bank, EMBED_N, cfg.embed_dim, "bank")
+        out["embed"] = {"ms": embed_s * 1e3, "images_per_s": EMBED_N / embed_s, "path": meta["path"]}
+        del embed_engine, served
+        free_card()
+
+        # 9d: the serving CLI in-process with every flag, the port's client against it
+        names = f"{root}/classes.txt"
+        with open(names, "w") as f:
+            f.write("\n".join(GATE_CLASSES[:CLI_CLASSES]) + "\n")
+        ref_model, _, _ = timed_load(export, dev)[:3]
+        ref = InferenceEngine(ref_model, input_hw=(256, 256))
+        ref.enable_int8(calibration=art)
+        ref.load_index_file(bank)
+        ref.load_classifier(GATE_CLASSES[:CLI_CLASSES], PROMPT_TEMPLATES)
+        plain_model, _, _, _ = timed_load(export, dev)
+        for m in plain_model.modules():
+            if hasattr(m, "fused_mlp"):
+                m.fused_mlp = False
+        plain = InferenceEngine(plain_model, input_hw=(256, 256))
+        plain.enable_int8(calibration=art)
+        t0 = time.perf_counter()
+        server, engine = build_server(["--model", export, "--port", "0", "--int8", art, "--index", bank, "--warmup",
+                                       "--classifier", names, "--input-size", "256", *SERVE_ARGS])
+        out["build_server_ms"] = (time.perf_counter() - t0) * 1e3
+        require(engine.path_kinds == ref.path_kinds and engine.path_kinds["image"] == "int8", engine.path_kinds)
+        images256 = np.random.default_rng(12).integers(0, 256, (CLI_IMAGES, 256, 256, 3), dtype=np.uint8)
+        cli, launches, want = cli_requests(server, engine, ref, plain, images256, counters)
+        out["cli"] = cli
+        out["launches"] = launches
+        out["expected_ln_mlp"] = want
+        del server, engine, ref, ref_model, plain, plain_model
+        free_card()
+        out["cli_subprocess"] = cli_subprocess(export, dev, f"{root}/serve_stderr.log")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def write_npy_tar(path, n):
+    """A webdataset-style tar of ``n`` uint8 256x256 ``.npy`` images (numpy seed 13)."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(13)
+    with tarfile.open(path, "w") as tar:
+        for i in range(n):
+            buf = io.BytesIO()
+            np.save(buf, rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+            info = tarfile.TarInfo(f"{i:06d}.npy")
+            info.size = buf.tell()
+            buf.seek(0)
+            tar.addfile(info, buf)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2849,6 +3255,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    t_run = time.perf_counter()
 
     t0 = time.perf_counter()
     _build.build(_build.all_sources())
@@ -2906,6 +3313,13 @@ def main() -> int:
     require(rn["launches"]["rn50_serving"]["preprocess"] > 0, "the RN50 serving path never launched preprocess")
     for row in kernels:  # each kernel's launches in phase 8's parts
         row["rn_launches"] = {k: v[row["name"]] for k, v in rn["launches"].items()}
+    load_cli = load_cli_path(dev, counters, text_int8=int8["gates"]["text"]["passed"])
+    emit({"load_cli": load_cli})
+    if load_cli["expected_ln_mlp"]:
+        require(load_cli["launches"]["ln_mlp"] > 0, "the serving CLI's requests never launched ln_mlp")
+    for row in kernels:  # each kernel's launches over phase 9d's requests through the CLI
+        row["cli_launches"] = load_cli["launches"][row["name"]]
+    emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

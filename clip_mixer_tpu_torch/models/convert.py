@@ -18,6 +18,10 @@ int8 weights and scales. A ResNet's keys are the reference's
 
 from __future__ import annotations
 
+import json
+import os
+import struct
+import zipfile
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 from torch import nn
 
 from clip_mixer_tpu_torch.config import CLIPConfig
+from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, MixerTower
 from clip_mixer_tpu_torch.models.towers import require_ported
 from clip_mixer_tpu_torch.ops.quant import QuantResNet, QuantTextTower, QuantVisionTower
@@ -281,3 +286,181 @@ def load_jax_qparams(model, qtree: Mapping) -> Tuple[Optional[nn.Module], Option
         text = QuantTextTower(model, t.get("a_scales"))
         _load_quant_blocks(text, t["tower"]["blocks"])
     return vision, text
+
+
+# ---- reference-keyed checkpoints: the import -----------------------------------
+
+
+def sniff_config(sd: Mapping) -> CLIPConfig:
+    """The architecture of a reference-keyed state dict, from its keys and
+    ``.shape``s alone (a copy of the JAX package's ``sniff_config``, which
+    extends the reference's ``build_model`` with the Mixer branch)."""
+    is_vit = "visual.proj" in sd
+    is_mixer = any(".mixBlocks." in k for k in sd)
+
+    embed_dim = sd["text_projection"].shape[1]
+    vocab_size = sd["token_embedding.weight"].shape[0]
+    text_width = sd["ln_final.weight"].shape[0]
+    if is_mixer:
+        context_length = sd["transformer.mixBlocks.0.token_mix_seq.lin1.weight"].shape[1]
+        text_layers = len({k.split(".")[2] for k in sd if k.startswith("transformer.mixBlocks")})
+    else:
+        context_length = sd["positional_embedding"].shape[0]
+        text_layers = len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks")})
+
+    if is_vit:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_patch = sd["visual.conv1.weight"].shape[-1]
+        if is_mixer:
+            vision_layers = len({k.split(".")[3] for k in sd if k.startswith("visual.transformer.mixBlocks")})
+            vis_tokens = sd["visual.transformer.mixBlocks.0.token_mix_seq.lin1.weight"].shape[1]
+            grid = round((vis_tokens - 1) ** 0.5)
+        else:
+            vision_layers = len([k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")])
+            grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = vision_patch * grid
+    else:
+        vision_layers = tuple(
+            len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}")}) for b in (1, 2, 3, 4)
+        )
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        vision_patch = None
+        out_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = out_width * 32
+
+    return CLIPConfig(
+        embed_dim=embed_dim,
+        image_resolution=image_resolution,
+        vision_layers=vision_layers,
+        vision_width=vision_width,
+        vision_patch_size=vision_patch,
+        context_length=context_length,
+        vocab_size=vocab_size,
+        text_width=text_width,
+        text_heads=text_width // 64,
+        text_layers=text_layers,
+        tower="mixer" if is_mixer else "transformer",
+    )
+
+
+# keys of the reference's JIT archives that are no weights (its model.py:507-509)
+_BOOKKEEPING = ("input_resolution", "context_length", "vocab_size")
+
+
+def _non_persistent(model: nn.Module):
+    """State-dict names of ``model``'s non-persistent buffers (the causal
+    mask), which a TorchScript archive's ``state_dict`` carries."""
+    return {f"{name}.{b}" if name else b for name, m in model.named_modules() for b in m._non_persistent_buffers_set}
+
+
+@torch.no_grad()
+def load_reference_state_dict(sd: Mapping, device=None, compute_dtype: Optional[str] = None):
+    """A reference-keyed state dict (any float dtype; OpenAI's archives are
+    fp16) -> ``(CLIP, cfg)``, the model on ``device`` (the card unless
+    another is named) with the weights as f32 masters.
+
+    The architecture is sniffed (:func:`sniff_config`); ``compute_dtype``
+    overrides its activation dtype. As the JAX importer does, the reference's
+    bookkeeping keys and a ``logit_bias`` are dropped (the sniffed config has
+    no slot for it); a ResNet's absent ``num_batches_tracked`` is taken as
+    0. Every other tensor must fit: a missing, unexpected or misshapen one
+    raises, and no model is returned."""
+    sd = {k: v for k, v in sd.items() if k not in _BOOKKEEPING and k != "logit_bias"}
+    cfg = sniff_config(sd)
+    if compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=compute_dtype)
+    model = CLIP(cfg, device=device)
+    skip = _non_persistent(model)
+    want = model.state_dict()
+    got: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k in skip:
+            continue
+        v = torch.as_tensor(v)
+        got[k] = v.to(torch.float32) if v.is_floating_point() else v.to(torch.int64)
+    for k in want:
+        if k.endswith(".num_batches_tracked") and k not in got:
+            got[k] = torch.zeros((), dtype=torch.int64)
+    try:
+        model.load_state_dict(got, strict=True)
+    except RuntimeError as e:
+        raise RuntimeError(f"the state dict does not fit the sniffed {cfg.tower} architecture: {e}") from None
+    return model, cfg
+
+
+# safetensors dtype -> numpy dtype, little-endian (BF16 read as its uint16 bits)
+_SAFETENSORS_DTYPES = {
+    "F64": "<f8", "F32": "<f4", "F16": "<f2", "BF16": "<u2", "I64": "<i8", "I32": "<i4",
+    "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> CPU tensors, read without the
+    ``safetensors`` package: an 8-byte little-endian header length, a JSON
+    header (dtype, shape, data offsets per tensor), then the raw
+    little-endian bytes."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(os.path.getsize(path) - 8 - n)
+        f.readinto(data)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which the reader does not know")
+        dt = np.dtype(_SAFETENSORS_DTYPES[info["dtype"]])
+        begin, end = info["data_offsets"]
+        count = int(np.prod(info["shape"], dtype=np.int64))
+        if end - begin != count * dt.itemsize or end > len(data):
+            raise ValueError(f"{path}: {name}'s data offsets {begin}..{end} do not fit {info['shape']} {info['dtype']}")
+        t = torch.from_numpy(np.frombuffer(data, dt, count, begin).reshape(info["shape"]))
+        out[name] = t.view(torch.bfloat16) if info["dtype"] == "BF16" else t
+    return out
+
+
+def _is_torchscript(path: str) -> bool:
+    """A TorchScript archive is a zip holding ``<name>/constants.pkl``; a
+    ``torch.save`` zip holds none."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as z:
+        return any(n.endswith("/constants.pkl") for n in z.namelist())
+
+
+# an Accelerate save_state directory's weight files, in the order looked for
+CHECKPOINT_FILES = ("model.safetensors", "pytorch_model.bin", "pytorch_model/mp_rank_00_model_states.pt")
+
+
+def read_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a torch checkpoint: a TorchScript archive (OpenAI's
+    ``.pt``), a ``torch.save`` file (loaded with ``weights_only=True``), a
+    ``.safetensors`` file, or an Accelerate ``save_state`` directory (its
+    first of :data:`CHECKPOINT_FILES`). A ``{"state_dict": ...}`` wrapper
+    is opened and a ``module.`` prefix on every key removed."""
+    if os.path.isdir(path):
+        for name in CHECKPOINT_FILES:
+            if os.path.exists(os.path.join(path, name)):
+                path = os.path.join(path, name)
+                break
+        else:
+            raise FileNotFoundError(f"no model weights found under {path} (looked for {', '.join(CHECKPOINT_FILES)})")
+    if path.endswith(".safetensors"):
+        sd = read_safetensors(path)
+    elif _is_torchscript(path):
+        sd = dict(torch.jit.load(path, map_location="cpu").state_dict())
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, Mapping) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if sd and all(k.startswith("module.") for k in sd):  # DDP-wrapped (Accelerate)
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    return dict(sd)
+
+
+def load_torch_checkpoint(path: str, device=None, compute_dtype: Optional[str] = None):
+    """A torch checkpoint (:func:`read_torch_checkpoint`) -> ``(CLIP, cfg)``
+    through :func:`load_reference_state_dict`."""
+    return load_reference_state_dict(read_torch_checkpoint(path), device=device, compute_dtype=compute_dtype)

@@ -145,3 +145,13 @@ def preprocess_pil(image, n_px: int = 224) -> np.ndarray:
     image = image.resize((ow, oh), Image.BICUBIC)
     image = image.crop((left, top, left + n_px, top + n_px))
     return np.asarray(image.convert("RGB"), dtype=np.uint8)
+
+
+def make_transform(n_px: int = 224):
+    """The reference's ``_transform(n_px)`` factory: a callable PIL.Image ->
+    HWC uint8 (:func:`preprocess_pil`; Pillow is imported at the call)."""
+
+    def transform(image) -> np.ndarray:
+        return preprocess_pil(image, n_px)
+
+    return transform

@@ -14,17 +14,23 @@ Counterpart of the single-device part of ``clip_mixer_tpu/serving.py``:
   (each a PNG, a JPEG or a ``.npy`` uint8 array),
   /similarity {"images_b64": [...], "texts": [...]}, /classify
   {"images_b64": [...], "top_k": k}, /index {"images_b64": [...], "ids":
-  [...]} and /retrieve {"texts": [...], "top_k": k}.
+  [...]} and /retrieve {"texts": [...], "top_k": k};
+* :func:`main`, the command line (``python -m clip_mixer_tpu_torch.serving
+  --model <name or path>``), serves on the card unless ``--device`` names
+  another; :func:`build_server` builds its server and engine without
+  serving, and ``clip_mixer_tpu_torch/client.py`` is its client.
 
-Multi-device engines (``mesh=``), frozen programs, the CLI ``main`` and
-``client.py`` are not ported yet (ROADMAP.md, Slice C item 12).
+Multi-device engines (``--all-devices``, ROADMAP.md item 16) and frozen
+programs (item 12c) are not ported yet: the CLI refuses both.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -36,6 +42,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from clip_mixer_tpu_torch.api import load
 from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import compute_dtype
 from clip_mixer_tpu_torch.models.clip import CLIP, l2_normalize
@@ -596,3 +603,72 @@ def serve(engine: InferenceEngine, host: str = "0.0.0.0", port: int = 8000) -> T
     """Build the HTTP server (call ``.serve_forever()`` on it, and
     ``.shutdown()`` then ``.server_close()`` to stop it)."""
     return ThreadingHTTPServer((host, port), make_handler(engine))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="Serve a CLIP model of the port over HTTP (clip_mixer_tpu_torch.serving).")
+    p.add_argument("--model", required=True,
+                   help="preset, OpenAI name, torch .pt / .safetensors, Accelerate dir or port export dir")
+    p.add_argument("--port", type=int, default=8000, help="0 binds a free port")
+    p.add_argument("--classifier", default=None, help="'imagenet' or a file with one classname per line")
+    p.add_argument("--all-devices", action="store_true", help="not ported yet (ROADMAP.md item 16)")
+    p.add_argument("--int8", default=None, metavar="CALIB_NPZ",
+                   help="serve the W8A8 path of the towers a calibration artifact holds "
+                        "(scripts/torch_calibrate_int8.py)")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every batch bucket on both towers before accepting traffic")
+    p.add_argument("--index", default=None, metavar="BANK_NPZ",
+                   help="serve text->image retrieval over a feature bank (scripts/torch_embed_dataset.py)")
+    p.add_argument("--input-size", type=int, default=None, metavar="N",
+                   help="accept NxN source images and resize them on the device; clients must send "
+                        "exactly that resolution")
+    p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
+    return p.parse_args(argv)
+
+
+def build_server(argv=None):
+    """The CLI's ``(server, engine)``, not yet serving: the model from
+    ``api.load``, int8 from an artifact, then the index, the warmup (after
+    the index, so a device bank's similarity runs too) and the classifier,
+    in the JAX CLI's order."""
+    args = parse_args(argv)
+    if args.all_devices:
+        raise SystemExit("--all-devices is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, "
+                         "Queue 1 item 16 (multi-GPU, Slice F)")
+    if os.path.isfile(os.path.join(args.model, "servable", "manifest.json")):
+        raise SystemExit(f"{args.model} holds frozen programs (servable/manifest.json), which the port cannot "
+                         "serve yet and must not re-trace: ROADMAP.md, Queue 1 item 12c")
+    model, _, _ = load(args.model, device=args.device)
+    engine = InferenceEngine(model, input_hw=(args.input_size, args.input_size) if args.input_size else None)
+    if args.int8:
+        engine.enable_int8(calibration=args.int8)
+    if args.index:
+        engine.load_index_file(args.index)
+        print(f"retrieval index loaded: {len(engine._index[1])} entries", flush=True)
+    if args.warmup:
+        print("warming up all batch buckets...", flush=True)
+        engine.warmup()
+    if args.classifier:
+        from clip_mixer_tpu_torch.evals.prompts import IMAGENET_CLASSNAMES, PROMPT_TEMPLATES
+
+        if args.classifier == "imagenet":
+            names = IMAGENET_CLASSNAMES
+        else:
+            with open(args.classifier) as f:
+                names = [line.strip() for line in f if line.strip()]
+        engine.load_classifier(names, PROMPT_TEMPLATES)
+    return serve(engine, port=args.port), engine
+
+
+def main(argv=None) -> None:
+    server, engine = build_server(argv)
+    print(f"serving on :{server.server_address[1]} ({engine.cfg.tower}, {engine.device}, "
+          f"paths {engine.path_kinds})", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``train.py`` on one device, with its flags'
 names and defaults (remat on unless ``--no-remat``), ``--device`` in place of
 ``--platform`` (the card unless another is named). It builds the model from
-a preset or from ``--init-from`` (a port export directory), the synthetic
+a preset or from ``--init-from`` (whatever ``api.load`` takes: a port
+export directory, a torch checkpoint, a registry name or a preset), the synthetic
 source, and the :class:`~clip_mixer_tpu_torch.train.trainer.Trainer`, which
 writes to ``outputs/<run-name>`` and exports to ``outputs/<run-name>/export``.
 
@@ -27,7 +28,7 @@ import traceback
 
 import torch
 
-from clip_mixer_tpu_torch.api import load_config
+from clip_mixer_tpu_torch.api import load
 from clip_mixer_tpu_torch.config import PRESETS, SIGLIP_LOGIT_SCALE_MAX, TrainConfig
 from clip_mixer_tpu_torch.data.pipeline import SyntheticSource
 from clip_mixer_tpu_torch.models.clip import CLIP
@@ -83,7 +84,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--freeze-serving", action="store_true", help="not ported yet")
     p.add_argument("--loss", default="info_nce", choices=["info_nce", "siglip"])
     p.add_argument("--init-from", default=None, metavar="PATH",
-                   help="initialise from a port export directory (config.json + model.pt); "
+                   help="initialise from whatever api.load takes (a port export directory, a torch "
+                        ".pt / .safetensors, an Accelerate dir, a registry name or a preset); "
                         "a checkpoint of this run still wins")
     p.add_argument("--freeze-tower", default=None, choices=["visual", "text"])
     p.add_argument("--augment", action="store_true", help="in-step random crop and flip")
@@ -125,21 +127,19 @@ def refuse_unported(args: argparse.Namespace) -> None:
 
 
 def init_model(path: str, cfg, seed: int, device):
-    """The fine-tuning entry: the architecture of the export at ``path``,
-    this run's runtime knobs, the exported weights. A SigLIP run from an
-    InfoNCE export keeps its fresh ``logit_bias``."""
-    if not os.path.isfile(os.path.join(path, "config.json")):
-        raise SystemExit(f"--init-from {path}: not a port export directory (config.json + model.pt); "
-                         "registry names and torch checkpoints wait for ROADMAP.md Slice E")
-    cfg = load_config(path).replace(
+    """The fine-tuning entry: the architecture and weights of what
+    ``api.load`` makes of ``path`` (read on the host), this run's runtime
+    knobs. A SigLIP run from an InfoNCE checkpoint keeps its fresh
+    ``logit_bias``."""
+    loaded, loaded_cfg, _ = load(path, device="cpu", seed=seed)
+    cfg = loaded_cfg.replace(
         remat=cfg.remat, remat_policy=cfg.remat_policy, fused_mlp=cfg.fused_mlp,
         compute_dtype=cfg.compute_dtype, logit_bias_init=cfg.logit_bias_init,
     )
     model = CLIP(cfg, device=device, generator=torch.Generator().manual_seed(seed))
-    sd = torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)
-    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing, unexpected = model.load_state_dict(loaded.state_dict(), strict=False)
     if unexpected or set(missing) - {"logit_bias"}:
-        raise SystemExit(f"--init-from {path}: weights do not fit the exported config "
+        raise SystemExit(f"--init-from {path}: weights do not fit the loaded config "
                          f"(missing {missing[:5]}, unexpected {unexpected[:5]})")
     return model, cfg
 

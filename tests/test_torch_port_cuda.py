@@ -570,3 +570,33 @@ def test_rn_int8_tower_on_the_card_matches_the_cpu(cuda):
     got, want = tq.encode_image_rn_q(q_card, images.to(cuda)), tq.encode_image_rn_q(q_cpu, images)
     cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want.float(), dim=-1)
     assert float(cos.min()) >= 0.999, float(cos.min())
+
+
+@pytest.mark.parametrize("wrapping", ["fp16_pt", "accelerate_dir"])
+def test_load_of_a_reference_checkpoint_on_the_card(cuda, tmp_path, wrapping):
+    """``api.load`` with no device: the model on the card, every tensor the
+    file's fp16 value in f32, f32 features on the card against the CPU's
+    load of the same file (cosine >= 0.99999), and ``compat.load`` in bf16."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS, api, compat
+
+    src = CLIP(PRESETS["mixer-debug"], device="cpu", generator=torch.Generator().manual_seed(4)).state_dict()
+    half = {k: v.half() for k, v in src.items()}
+    if wrapping == "fp16_pt":
+        path = str(tmp_path / "ref.pt")
+        torch.save(half, path)
+    else:
+        path = str(tmp_path / "acc")
+        (tmp_path / "acc").mkdir()
+        torch.save({"state_dict": {f"module.{k}": v for k, v in half.items()}}, f"{path}/pytorch_model.bin")
+    model, cfg, _ = api.load(path, compute_dtype="float32")
+    assert model.device.type == "cuda" and cfg.vision_width == PRESETS["mixer-debug"].vision_width
+    for k, v in model.state_dict().items():
+        assert torch.equal(v.cpu(), half[k].float()), k
+    cpu, _, _ = api.load(path, device="cpu", compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32))
+    with torch.inference_mode():
+        got, want = model.encode_image(images.to(cuda)).cpu(), cpu.encode_image(images)
+    assert float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min()) >= 0.99999
+    cmodel, _ = compat.load(path)
+    assert cmodel.dtype == torch.bfloat16 and cmodel.device.type == "cuda"

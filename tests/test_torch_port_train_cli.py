@@ -3,7 +3,8 @@
 ``main([...])`` with ``--device cpu`` trains two steps and writes the
 export; every flag whose machinery is not ported exits with a message
 naming its ROADMAP item; a non-finite loss exits with code 13 (the JAX
-launcher's ``EXIT_NONFINITE``); ``--init-from`` starts from a port export.
+launcher's ``EXIT_NONFINITE``); ``--init-from`` starts from whatever
+``api.load`` takes: a port export, a torch checkpoint, a preset.
 """
 
 import json
@@ -15,7 +16,7 @@ import torch
 
 from clip_mixer_tpu.launch import EXIT_NONFINITE as JAX_EXIT_NONFINITE
 
-from clip_mixer_tpu_torch import train_cli
+from clip_mixer_tpu_torch import CLIP, train_cli
 from clip_mixer_tpu_torch.config import PRESETS
 
 RUN = ["--synthetic", "--preset", "mixer-debug", "--global-batch-size", "4", "--steps-per-epoch", "2",
@@ -111,8 +112,32 @@ def test_init_from_a_port_export():
     assert float(model.logit_bias.detach()) == -10.0  # an InfoNCE export gains a fresh bias
     train_cli.main(RUN + ["--run-name", "tuned", "--no-validators", "--init-from", export])
     assert os.path.isfile(os.path.join("outputs", "tuned", "export", "model.pt"))
-    with pytest.raises(SystemExit, match="not a port export directory"):
-        train_cli.main(RUN + ["--run-name", "x", "--init-from", "mixer-b32"])
+    with pytest.raises(RuntimeError, match="not found; available models"):
+        train_cli.main(RUN + ["--run-name", "x", "--init-from", "no-such-model"])
+
+
+@pytest.mark.parametrize("source", ["pt", "accelerate_dir"])
+def test_init_from_a_torch_checkpoint(source):
+    """``--init-from`` a reference-keyed fp16 ``.pt`` and an Accelerate
+    directory (``pytorch_model.bin``, ``{"state_dict"}`` with ``module.``
+    keys): the weights are the file's in f32, the run's knobs its own."""
+    src = CLIP(PRESETS["mixer-debug"], device="cpu", generator=torch.Generator().manual_seed(5)).state_dict()
+    half = {k: v.half() for k, v in src.items()}
+    if source == "pt":
+        path = "ref.pt"
+        torch.save(half, path)
+    else:
+        path = "acc"
+        os.makedirs(path)
+        torch.save({"state_dict": {f"module.{k}": v for k, v in half.items()}}, os.path.join(path, "pytorch_model.bin"))
+    cfg = PRESETS["mixer-debug"].replace(remat=True, compute_dtype="bfloat16")
+    model, got_cfg = train_cli.init_model(path, cfg, seed=0, device="cpu")
+    assert got_cfg.remat is True and got_cfg.compute_dtype == "bfloat16"  # this run's knobs
+    assert got_cfg.vision_width == PRESETS["mixer-debug"].vision_width
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, half[k].float()), k
+    train_cli.main(RUN + ["--run-name", f"from_{source}", "--no-validators", "--init-from", path])
+    assert os.path.isfile(os.path.join("outputs", f"from_{source}", "export", "model.pt"))
 
 
 def test_the_default_device_is_the_card(monkeypatch):
