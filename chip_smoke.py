@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
-its model loading and its serving CLI on one CUDA card and check its kernels.
+its model loading, its serving CLI, its evals and its real-data sources on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -201,6 +201,37 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    a tower served bf16 and never for an int8 one; then ``python -m
    clip_mixer_tpu_torch.serving`` in a subprocess, timed to its first
    ``/healthz`` and asked one ``/encode_text``.
+
+10. The evals and the real-data sources, full-width Mixer-B/32 (bf16, seed-0
+   weights), every launch counter set to 0 before each part and read after
+   it; ``CLIP_MIXER_OFFLINE=1`` for the whole run, so the remote-dataset
+   validators skip without a DNS probe. 10a: the ImageNet zero-shot head,
+   1000 classes x 80 templates (80,000 prompts), on the ``fused_mlp=True``
+   config: the host tokenizer and the encode timed apart; an
+   ``ImageNetValidator`` pass over 1,024 injected uint8 224x224 images
+   (numpy seed) in batches of 256, which must launch ``ln_mlp`` exactly
+   ceil(80000 / 1024) x 12 + 4 x 12 = 996 times and nothing else, its top-1
+   and top-5 equal to a numpy count from the logits it computed (themselves
+   within 1e-3 of numpy's 100 f @ W from its features and W); the same head
+   through the fused-block route (``fused_mixer_block`` launched, no
+   ``ln_mlp``) and the plain route (nothing launched), each kernel route
+   against plain: every class column at cosine >= 0.999 and the logits
+   within ``HEAD_LOGIT_TOL`` (the fused-block route with every text block's
+   channel-mix output bias dropped must fail). 10b: two tar globs of 1,024
+   ``.npy`` 224x224 samples with captions and a held-out glob of 2,048,
+   written with ``tarfile``; ``TarShardSource`` (thread decode, 8 workers)
+   and ``FileListSource.from_folder`` over 512 ``.npy`` files timed;
+   ``MixtureSource`` at weights 2:1 over 64 batches of 256, the first
+   corpus's share within 0.02 of 2/3; ``RetrievalValidator`` (2,048
+   samples) on the fused-block route, its result equal to a numpy count of
+   ranks from the features it computed. 10c: ``train_cli`` on the mixture
+   (``::2`` / ``::1``, B = 256, 8 steps) with ``--val-data`` and the default
+   validators, as a subprocess: the four remote ones skip at steps 4 and 8,
+   each pass timed, and ``metrics.jsonl`` holds the retrieval rows at both;
+   ``train_cli --cache-data`` over one glob; ``eval_cli`` with all five
+   validators on the run's export; and a shard with a ``.jpg`` member under
+   ``--on-decode-error substitute`` (``mixer-debug``: the decode is tested), which must exit non-zero with the
+   ``ImportError`` naming Pillow where Pillow is absent (train where present).
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -3221,6 +3252,425 @@ def load_cli_path(dev, counters, text_int8=False):
     return out
 
 
+# ---- phase 10: evaluation and real data -------------------------------------------
+
+EVAL_IMAGES = 1024  # the ImageNetValidator pass's injected images, in batches of EVAL_BATCH
+EVAL_BATCH = 256
+TEXT_BATCH = 1024  # encode_texts_batched's default batch
+HEAD_COSINE = 0.999  # each class column of W, a kernel route against the plain route
+# max |100 f @ W| difference of a kernel route's logits from the plain route's, over 1,024 images x
+# 1,000 classes (bf16 towers): ~2.3x the first card reading (fused_mlp 0.2019, fused-block 0.2199; the
+# planted fault 1.6197; H100 80GB HBM3, 700 W)
+HEAD_LOGIT_TOL = 0.5
+LOGIT_RECOMPUTE_TOL = 1e-3  # the validator's f32 logits against numpy's 100 f @ W in f64
+CORPUS_N = 1024  # samples in each training glob (.npy 224x224)
+HELD_OUT_N = 2048
+SHARD_N = 512  # samples a shard
+FOLDER_N = 512  # .npy files in the FileListSource.from_folder timing
+DECODE_WORKERS = 8
+MIX_WEIGHTS = (2.0, 1.0)
+MIX_BATCHES, MIX_B = 64, 256
+MIX_SHARE_TOL = 0.02  # |realised share of corpus a - 2/3| over 64 x 256 samples: ~5.4 binomial sigmas
+EVAL_CLI_TIMEOUT_S = 600
+EVAL_CLI_ARGS = ["--preset", "mixer-b32", "--epochs", "1"]  # the training runs of phase 10c (a CPU rehearsal: its preset)
+EVAL_CLI_B = 256
+EVAL_CLI_DEVICE = []  # every phase 10c command line's extra flags (a CPU rehearsal: --device cpu)
+JPG_PRESET = "mixer-debug"  # the .jpg member's run tests the decode, not the model: the smallest preset
+REMOTE_VALIDATORS = ("ImageNetValidator", "CosineSimValidator", "SST2Validator", "MNISTValidator")
+
+
+def write_caption_tar(path, start, n, word, res, seed):
+    """A webdataset tar of ``n`` uint8 [res, res, 3] ``.npy`` images with
+    captions ``"<word> picture number <i>"``, numpy seed ``seed``."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(seed)
+    with tarfile.open(path, "w") as tar:
+        for i in range(start, start + n):
+            buf = io.BytesIO()
+            np.save(buf, rng.integers(0, 256, (res, res, 3), dtype=np.uint8))
+            for name, data in ((f"{i:06d}.npy", buf.getvalue()), (f"{i:06d}.txt", f"{word} picture number {i}".encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+
+
+def write_corpus(root, word, n, res, seed):
+    """``root/<word>/*.tar``: ``n`` samples in shards of ``SHARD_N``; returns the glob."""
+    os.makedirs(f"{root}/{word}")
+    for s, start in enumerate(range(0, n, SHARD_N)):
+        write_caption_tar(f"{root}/{word}/{s:03d}.tar", start, min(SHARD_N, n - start), word, res, seed + s)
+    return f"{root}/{word}/*.tar"
+
+
+def head_route(model, tokens, images, n_classes, n_templates, counters):
+    """One route's zero-shot head on ``tokens`` and ``images``: (W, logits,
+    launches, seconds), the counters set to 0 first."""
+    from clip_mixer_tpu_torch.evals import zeroshot
+
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = zeroshot.class_embeddings(zeroshot.encode_texts_batched(model, tokens, TEXT_BATCH), n_classes, n_templates)
+    classify = zeroshot.make_image_classifier(model, w)
+    logits = np.concatenate([classify(images[i:i + EVAL_BATCH]) for i in range(0, len(images), EVAL_BATCH)])
+    torch.cuda.synchronize()
+    return w, logits, counters.read(), time.perf_counter() - t0
+
+
+def head_gap(w, logits, w_ref, logits_ref):
+    """(least cosine of a class column, largest |logit| difference) against the plain route."""
+    return float((w.astype(np.float64) * w_ref).sum(0).min()), float(np.abs(logits - logits_ref).max())
+
+
+def numpy_topk(logits, targets):
+    """Top-1 and top-5 in %, from each target's rank among its row's logits
+    (ties counted against it): independent of ``topk_accuracy``'s sort."""
+    rank = (logits > logits[np.arange(len(targets)), targets][:, None]).sum(1)
+    return 100.0 * float((rank < 1).mean()), 100.0 * float((rank < 5).mean())
+
+
+def numpy_retrieval(img_f, txt_f):
+    """The retrieval result from the features, ranks counted directly: the
+    entries above the true pair, and the equal ones before it (the stable
+    sort's order)."""
+    sim = img_f @ txt_f.T
+    res = {"n": float(sim.shape[0])}
+    for name, s in (("image_to_text", sim), ("text_to_image", sim.T)):
+        diag = np.diag(s)[:, None]
+        before = np.tri(s.shape[0], k=-1, dtype=bool)
+        ranks = (s > diag).sum(1) + ((s == diag) & before).sum(1)
+        for k in (1, 5, 10):
+            res[f"{name}_r@{k}"] = float((ranks < k).mean() * 100.0)
+        res[f"{name}_median_rank"] = float(np.median(ranks) + 1.0)
+    return res
+
+
+def zero_shot_head(dev, counters, cfg, images, targets):
+    """Phase 10a: the ImageNet head (1000 classes x 80 templates) and the
+    ImageNetValidator on the fused_mlp config, the head through the
+    fused-block and plain routes, their agreement, and top-k against numpy."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.evals import validators, zeroshot
+    from clip_mixer_tpu_torch.evals.prompts import IMAGENET_CLASSNAMES, PROMPT_TEMPLATES
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+    from clip_mixer_tpu_torch.train.metrics import MetricsWriter
+
+    out = {}
+    n_c, n_t = len(IMAGENET_CLASSNAMES), len(PROMPT_TEMPLATES)
+    prompts = [t.format(c) for c in IMAGENET_CLASSNAMES for t in PROMPT_TEMPLATES]
+    t0 = time.perf_counter()
+    tokens = tokenize(prompts, cfg.context_length, truncate=True)
+    out["prompts"] = len(prompts)
+    out["tokenize_s"] = time.perf_counter() - t0
+    fm_cfg = cfg.replace(fused_mlp=True)
+    model = CLIP(fm_cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    zeroshot.encode_texts_batched(model, tokens[:TEXT_BATCH], TEXT_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zeroshot.class_embeddings(zeroshot.encode_texts_batched(model, tokens, TEXT_BATCH), n_c, n_t)
+    torch.cuda.synchronize()
+    out["encode_s"] = time.perf_counter() - t0
+
+    # the validator's pass, its features, W and logits captured on the way
+    seen = {"feats": [], "logits": []}
+    real_features, real_classifier = zeroshot._image_features, zeroshot.make_image_classifier
+
+    def features(m, x):
+        f = real_features(m, x)
+        seen["feats"].append(f.cpu().numpy())
+        return f
+
+    def classifier(m, w):
+        seen["w"] = w
+        classify = real_classifier(m, w)
+
+        def logged(x):
+            seen["logits"].append(classify(x))
+            return seen["logits"][-1]
+
+        return logged
+
+    batches = [(images[i:i + EVAL_BATCH], targets[i:i + EVAL_BATCH]) for i in range(0, len(images), EVAL_BATCH)]
+    writer = MetricsWriter()
+    v = validators.ImageNetValidator(model, fm_cfg, writer=writer, image_batches_fn=lambda: iter(batches))
+    zeroshot._image_features, zeroshot.make_image_classifier = features, classifier
+    try:
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = v.validate(step=0, verbose=True)
+        torch.cuda.synchronize()
+        out["validator_s"] = time.perf_counter() - t0
+        launches = counters.read()
+    finally:
+        zeroshot._image_features, zeroshot.make_image_classifier = real_features, real_classifier
+    want_ln = -(-len(prompts) // TEXT_BATCH) * cfg.text_layers + len(batches) * cfg.vision_layers
+    require(launches == {"ln_mlp": want_ln, "preprocess": 0, "fused_mixer_block": 0},
+            f"the ImageNetValidator pass launched {launches}, expected ln_mlp {want_ln} and nothing else")
+    require(set(res) == {"top1", "top5"} and sorted(writer.history) == ["Top-1 accuracy", "Top-5 accuracy"], res)
+    # numpy from the same features and W: the logits, then top-k from them
+    logits = np.concatenate([l_[:len(t)] for l_, (_, t) in zip(seen["logits"], batches)])
+    feats = np.concatenate([f[:len(t)] for f, (_, t) in zip(seen["feats"], batches)]).astype(np.float64)
+    recomputed = 100.0 * feats @ seen["w"].astype(np.float64)
+    out["logit_recompute_max_abs"] = float(np.abs(recomputed - logits).max())
+    require(out["logit_recompute_max_abs"] <= LOGIT_RECOMPUTE_TOL,
+            f"validator logits against numpy's 100 f @ W: {out['logit_recompute_max_abs']}")
+    np_top = numpy_topk(logits, targets)
+    require(np_top == (res["top1"], res["top5"]), f"topk: validator {res}, numpy {np_top}")
+    out["imagenet"] = {**res, "numpy_top1_top5": np_top,
+                       "numpy_top1_top5_from_f64_logits": numpy_topk(recomputed, targets)}
+    out["launches"] = {"imagenet_validator": launches}
+    out["expected_ln_mlp"] = want_ln
+    w_fm, logits_fm = seen["w"], logits
+    log(f"phase 10a validator: {res} in {out['validator_s']:.2f} s, launches {launches}")
+    del model, v, seen, feats
+    free_card()
+
+    # the same head through the fused-block route and plain, one set of weights
+    model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    route_towers(model, True)
+    w_fb, logits_fb, out["launches"]["fused_block_head"], out["fused_block_head_s"] = head_route(
+        model, tokens, images, n_c, n_t, counters)
+    require(out["launches"]["fused_block_head"]["fused_mixer_block"] > 0
+            and out["launches"]["fused_block_head"]["ln_mlp"] == 0, out["launches"]["fused_block_head"])
+    # the planted fault: every text block's channel-mix output bias dropped on the fused-block route
+    saved = [blk.channel_mix_seq.lin4.bias.detach().clone() for blk in model.transformer.mixBlocks]
+    with torch.no_grad():
+        for blk in model.transformer.mixBlocks:
+            blk.channel_mix_seq.lin4.bias.zero_()
+    w_fault, logits_fault, _, _ = head_route(model, tokens, images, n_c, n_t, counters)
+    with torch.no_grad():
+        for blk, b in zip(model.transformer.mixBlocks, saved):
+            blk.channel_mix_seq.lin4.bias.copy_(b)
+    route_towers(model, False)
+    w_pl, logits_pl, out["launches"]["plain_head"], out["plain_head_s"] = head_route(
+        model, tokens, images, n_c, n_t, counters)
+    require(not any(out["launches"]["plain_head"].values()), out["launches"]["plain_head"])
+    gaps = {"fused_mlp": head_gap(w_fm, logits_fm, w_pl, logits_pl), "fused_block": head_gap(w_fb, logits_fb, w_pl, logits_pl),
+            "planted_fault": head_gap(w_fault, logits_fault, w_pl, logits_pl)}
+    for route in ("fused_mlp", "fused_block"):
+        cos, dl = gaps[route]
+        require(cos >= HEAD_COSINE and dl <= HEAD_LOGIT_TOL,
+                f"{route} head against plain: column cosine {cos} (>= {HEAD_COSINE}), logits {dl} (<= {HEAD_LOGIT_TOL})")
+    cos, dl = gaps["planted_fault"]
+    require(cos < HEAD_COSINE or dl > HEAD_LOGIT_TOL,
+            f"planted fault: the fused-block head without its channel-mix biases passed ({cos}, {dl})")
+    out["head_vs_plain"] = {k: {"min_column_cosine": c, "max_abs_logit": d} for k, (c, d) in gaps.items()}
+    out["plain_top1_top5"] = numpy_topk(logits_pl, targets)
+    del model
+    free_card()
+    return out
+
+
+def sources_and_retrieval(dev, counters, cfg, root):
+    """Phase 10b: the tar, folder and mixture sources on the host, and
+    RetrievalValidator on the fused-block route."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.data.pipeline import FileListSource, MixtureSource, TarShardSource, expand_shard_pattern
+    from clip_mixer_tpu_torch.evals import validators
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    res = cfg.image_resolution
+    out = {}
+    t0 = time.perf_counter()
+    globs = {w: write_corpus(root, w, n, res, seed) for w, n, seed in
+             (("alpha", CORPUS_N, 100), ("omega", CORPUS_N, 200), ("heldout", HELD_OUT_N, 300))}
+    out["write_s"] = time.perf_counter() - t0
+    out["corpus_bytes"] = sum(os.path.getsize(p) for w in globs.values() for p in expand_shard_pattern(w))
+    kw = dict(image_size=res, context_length=cfg.context_length)
+
+    def rate(source):
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in source.iter_batches(0))
+        s = time.perf_counter() - t0
+        return {"samples": n, "s": s, "images_per_s": n / s}
+
+    out["tar_decode"] = rate(TarShardSource(expand_shard_pattern(globs["alpha"]), batch_size=EVAL_BATCH,
+                                            decode_workers=DECODE_WORKERS, **kw))
+    folder = f"{root}/folder"
+    os.makedirs(folder)
+    rng = np.random.default_rng(400)
+    for i in range(FOLDER_N):
+        np.save(f"{folder}/image_{i:05d}.npy", rng.integers(0, 256, (res, res, 3), dtype=np.uint8))
+    out["folder_decode"] = rate(FileListSource.from_folder(folder, batch_size=EVAL_BATCH, caption_from="stem",
+                                                           decode_workers=DECODE_WORKERS, **kw))
+    require(out["tar_decode"]["samples"] == CORPUS_N and out["folder_decode"]["samples"] == FOLDER_N, out)
+
+    mix = MixtureSource([expand_shard_pattern(globs[w]) for w in ("alpha", "omega")], batch_size=MIX_B,
+                        weights=MIX_WEIGHTS, shuffle_buffer=1000, decode_workers=DECODE_WORKERS, **kw)
+    marker = tokenize(["alpha"], cfg.context_length)[0, 1]
+    t0 = time.perf_counter()
+    it, hits = mix.iter_batches(0), 0
+    for _ in range(MIX_BATCHES):
+        hits += int((next(it)["texts"][:, 1] == marker).sum())
+    mix_s = time.perf_counter() - t0
+    share = hits / (MIX_BATCHES * MIX_B)
+    want = MIX_WEIGHTS[0] / sum(MIX_WEIGHTS)
+    require(abs(share - want) <= MIX_SHARE_TOL, f"mixture share {share}, not {want} +- {MIX_SHARE_TOL}")
+    out["mixture"] = {"share_alpha": share, "want": want, "tol": MIX_SHARE_TOL, "s": mix_s,
+                      "images_per_s": MIX_BATCHES * MIX_B / mix_s}
+    log(f"phase 10b sources: {out}")
+
+    model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    route_towers(model, True)
+    held_out = TarShardSource(expand_shard_pattern(globs["heldout"]), batch_size=EVAL_BATCH, drop_last=False,
+                              decode_workers=DECODE_WORKERS, **kw)
+    seen = {}
+    real_img, real_txt = validators.encode_images_batched, validators.encode_texts_batched
+    validators.encode_images_batched = lambda m, x: seen.setdefault("img", real_img(m, x))
+    validators.encode_texts_batched = lambda m, x: seen.setdefault("txt", real_txt(m, x))
+    try:
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = validators.RetrievalValidator(model, cfg, data_source=held_out, max_samples=HELD_OUT_N).validate(
+            step=0, verbose=True)
+        torch.cuda.synchronize()
+        out["retrieval_s"] = time.perf_counter() - t0
+        out["launches"] = {"retrieval": counters.read()}
+    finally:
+        validators.encode_images_batched, validators.encode_texts_batched = real_img, real_txt
+    require(out["launches"]["retrieval"]["fused_mixer_block"] > 0 and out["launches"]["retrieval"]["ln_mlp"] == 0,
+            out["launches"]["retrieval"])
+    want_res = numpy_retrieval(seen["img"], seen["txt"])
+    require(got == want_res, f"retrieval {got} against numpy {want_res}")
+    require(got["n"] == HELD_OUT_N, got)
+    out["retrieval"] = got
+    del model
+    free_card()
+    return out, globs
+
+
+def cli_run(argv, cwd, log_path, timeout=EVAL_CLI_TIMEOUT_S):
+    """``python -m <argv>`` in ``cwd`` with this repo on the path; (rc,
+    stdout, seconds), standard error to ``log_path``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as err:
+        proc = subprocess.run([sys.executable, "-m", *argv], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=err, text=True, timeout=timeout)
+    s = time.perf_counter() - t0
+    if proc.returncode:
+        with open(log_path) as f:
+            log(f"{argv[0]} exited {proc.returncode}: stdout {proc.stdout[-3000:]} stderr {f.read()[-3000:]}")
+    return proc.returncode, proc.stdout, s
+
+
+def clis(cfg, root, globs):
+    """Phase 10c: train_cli on the mixture with --val-data and the default
+    validators, train_cli --cache-data, eval_cli on the export, and a .jpg
+    member on a host without Pillow."""
+    import io
+    import re
+    import tarfile
+
+    from clip_mixer_tpu_torch import PRESETS
+
+    out = {}
+    run = ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size", str(EVAL_CLI_B),
+           "--steps-per-epoch", "8", "--validate-every", "4", "--checkpoint-every", "8", "--keep-checkpoints", "1",
+           "--verbose", "--data", f"{globs['alpha']}::2", "--data", f"{globs['omega']}::1",
+           "--val-data", globs["heldout"], "--run-name", "mix"]
+    rc, stdout, out["train_cli_s"] = cli_run(run, root, f"{root}/train_cli.err")
+    require(rc == 0, f"train_cli on the mixture exited {rc}")
+    passes = [(int(s), name, float(t)) for s, name, t in
+              re.findall(r"^validate step (\d+): (\w+) ([0-9.]+) s$", stdout, flags=re.M)]
+    require(sorted({(s, n) for s, n, _ in passes}) == sorted(
+        (s, n) for s in (4, 8) for n in REMOTE_VALIDATORS + ("RetrievalValidator",)), passes)
+    skipped = {tag: stdout.count(f"[{tag}] skipped") for tag in ("imagenet", "sst2", "mnist")}
+    skipped["sts"] = stdout.count("[sts:")
+    require(skipped["imagenet"] == skipped["sst2"] == skipped["mnist"] == 2 and skipped["sts"] == 12,
+            f"the remote validators did not skip offline at steps 4 and 8: {skipped}")
+    out["validator_pass_s"] = {f"{n}@{s}": t for s, n, t in passes}
+    with open(f"{root}/outputs/mix/runs/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    scored = sorted((r["step"], r["name"]) for r in rows if r["name"].startswith("Retrieval"))
+    require(scored == sorted((s, f"Retrieval {d} R@{k}") for s in (4, 8) for d in ("I->T", "T->I") for k in (1, 5)),
+            f"metrics.jsonl retrieval rows: {scored}")
+    out["retrieval_rows"] = {f"{r['name']}@{r['step']}": r["value"] for r in rows if r["name"].startswith("Retrieval")}
+    export = f"{root}/outputs/mix/export"
+
+    rc, _, out["cache_cli_s"] = cli_run(
+        ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size", str(EVAL_CLI_B),
+         "--steps-per-epoch", "2", "--checkpoint-every", "2", "--no-validators",
+         "--data", globs["alpha"], "--cache-data", f"{root}/cache", "--run-name", "cached"],
+        root, f"{root}/cache_cli.err")
+    require(rc == 0 and len(os.listdir(f"{root}/cache")) == 2, f"train_cli --cache-data exited {rc}")
+
+    rc, stdout, out["eval_cli_s"] = cli_run(
+        ["clip_mixer_tpu_torch.eval_cli", "--model", export, "--validators", "sts", "sst2", "mnist", "imagenet",
+         "retrieval", "--val-data", globs["heldout"], *EVAL_CLI_DEVICE],
+        root, f"{root}/eval_cli.err")
+    found = re.findall(r"^\[retrieval\] (\{.*\})$", stdout, flags=re.M)
+    require(rc == 0 and len(found) == 1, f"eval_cli exited {rc}; retrieval lines {found}")
+    out["eval_cli_retrieval"] = json.loads(found[0].replace("'", '"'))
+    require(out["eval_cli_retrieval"]["n"] == HELD_OUT_N, out["eval_cli_retrieval"])
+
+    # a .jpg member: without Pillow an ImportError naming it, nothing substituted
+    try:
+        from PIL import Image
+    except ImportError:
+        jpg, pillow = b"\xff\xd8\xff\xe0 never decoded", False
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(np.full((32, 32, 3), 128, np.uint8)).save(buf, "JPEG")
+        jpg, pillow = buf.getvalue(), True
+    os.makedirs(f"{root}/jpg")
+    npy = io.BytesIO()
+    res = PRESETS[JPG_PRESET].image_resolution
+    np.save(npy, np.zeros((res, res, 3), np.uint8))
+    with tarfile.open(f"{root}/jpg/000.tar", "w") as tar:
+        for name, data in (("a.jpg", jpg), ("a.txt", b"a grey square"), ("b.npy", npy.getvalue()),
+                           ("b.txt", b"a black square")):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    rc, _, s = cli_run(["clip_mixer_tpu_torch.train_cli", "--preset", JPG_PRESET, "--epochs", "1", *EVAL_CLI_DEVICE,
+                        "--global-batch-size", "2",
+                        "--steps-per-epoch", "1", "--no-validators", "--on-decode-error",
+                        "substitute", "--data", f"{root}/jpg/*.tar", "--run-name", "jpg"], root, f"{root}/jpg.err")
+    with open(f"{root}/jpg.err") as f:
+        err = f.read()
+    if pillow:
+        require(rc == 0, f"with Pillow the .jpg member did not train: rc {rc}")
+    else:
+        require(rc != 0 and "ImportError: decoding .jpg/.jpeg/.png records needs Pillow" in err
+                and "substituted" not in err, f"without Pillow: rc {rc}, stderr {err[-2000:]}")
+    out["jpg_member"] = {"pillow": pillow, "rc": rc, "s": s}
+    return out
+
+
+def eval_path(dev, counters):
+    """Phase 10: the evals and the real-data sources on full-width Mixer-B/32."""
+    import shutil
+    import tempfile
+
+    from clip_mixer_tpu_torch import PRESETS
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["mixer-b32"]
+    rng = np.random.default_rng(21)
+    images = rng.integers(0, 256, (EVAL_IMAGES, cfg.image_resolution, cfg.image_resolution, 3), dtype=np.uint8)
+    targets = rng.integers(0, 1000, EVAL_IMAGES)
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        out = {"head": zero_shot_head(dev, counters, cfg, images, targets)}
+        emit({"eval_head": out["head"]})
+        out["sources"], globs = sources_and_retrieval(dev, counters, cfg, root)
+        emit({"eval_sources": out["sources"]})
+        out["clis"] = clis(cfg, root, globs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {**out["head"]["launches"], **out["sources"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def write_npy_tar(path, n):
     """A webdataset-style tar of ``n`` uint8 256x256 ``.npy`` images (numpy seed 13)."""
     import io
@@ -3253,6 +3703,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the validators' remote datasets: skip without a DNS probe, here and in every subprocess
+    os.environ["CLIP_MIXER_OFFLINE"] = "1"
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     t_run = time.perf_counter()
@@ -3319,7 +3771,11 @@ def main() -> int:
         require(load_cli["launches"]["ln_mlp"] > 0, "the serving CLI's requests never launched ln_mlp")
     for row in kernels:  # each kernel's launches over phase 9d's requests through the CLI
         row["cli_launches"] = load_cli["launches"][row["name"]]
-    emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"]})
+    evals = eval_path(dev, counters)
+    emit({"evals": evals})
+    for row in kernels:  # each kernel's launches in phase 10's parts
+        row["eval_launches"] = {k: v[row["name"]] for k, v in evals["launches"].items()}
+    emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,8 +77,8 @@ class Trainer:
     ``validate(step, verbose=, params=)``, called every
     ``validate_every_steps`` with the host state dict (the EMA when on).
     ``timings`` collects what the loop measures: each batch's wait for the
-    data, each save's seconds and bytes, the restore's and the export's
-    seconds."""
+    data, each save's seconds and bytes, each validator pass's seconds, the
+    restore's and the export's seconds."""
 
     def __init__(
         self,
@@ -134,7 +134,8 @@ class Trainer:
             self.device = model.device if device is None else resolve_device(device)
             model = model.to(self.device)
         self.state = init_train_state(model, self.optimizer)
-        self.timings = {"data_wait_s": [], "save_s": [], "save_bytes": [], "restore_s": None, "export_s": None}
+        self.timings = {"data_wait_s": [], "save_s": [], "save_bytes": [], "validate_s": [], "restore_s": None,
+                        "export_s": None}
         self.start_epoch, self.start_batch = 0, 0
         if resume and self.checkpointer.latest_step() is not None:
             t0 = time.perf_counter()
@@ -410,9 +411,15 @@ class Trainer:
         return sd
 
     def validate(self, step: int) -> None:
-        """Run every validator on the host weights."""
+        """Run every validator on the host weights; each pass's seconds go
+        to ``timings["validate_s"]`` as ``(step, validator, s)``."""
         if not self.validators:
             return
         params = self._host_params()
         for v in self.validators:
+            t0 = time.perf_counter()
             v.validate(step, verbose=self.verbose, params=params)
+            s = time.perf_counter() - t0
+            self.timings["validate_s"].append((step, type(v).__name__, s))
+            if self.verbose:
+                print(f"validate step {step}: {type(v).__name__} {s:.3f} s", flush=True)

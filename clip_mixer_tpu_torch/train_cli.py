@@ -4,9 +4,15 @@ Counterpart of the JAX package's ``train.py`` on one device, with its flags'
 names and defaults (remat on unless ``--no-remat``), ``--device`` in place of
 ``--platform`` (the card unless another is named). It builds the model from
 a preset or from ``--init-from`` (whatever ``api.load`` takes: a port
-export directory, a torch checkpoint, a registry name or a preset), the synthetic
-source, and the :class:`~clip_mixer_tpu_torch.train.trainer.Trainer`, which
-writes to ``outputs/<run-name>`` and exports to ``outputs/<run-name>/export``.
+export directory, a torch checkpoint, a registry name or a preset), the data
+source (``--data``: a tar-shard glob, local or ``scheme://``, a ``.csv`` /
+``.tsv`` manifest or an image directory; several ``--data GLOB::WEIGHT``
+tar globs blend into a mixture; ``--cache-data`` serves ``--data`` from host
+RAM; else synthetic), the validators (the four remote ones unless
+``--no-validators``, retrieval over ``--val-data`` always) and the
+:class:`~clip_mixer_tpu_torch.train.trainer.Trainer`, which writes to
+``outputs/<run-name>`` and exports to ``outputs/<run-name>/export``. One
+process is one host (``n_hosts`` 1) until the multi-process launch is ported.
 
 Flags whose machinery is not ported yet exit with a message naming the
 ROADMAP item. A non-finite loss exits with code 13, as the JAX launcher's
@@ -22,6 +28,8 @@ Example::
 from __future__ import annotations
 
 import argparse
+import glob
+import math
 import os
 import sys
 import traceback
@@ -30,7 +38,21 @@ import torch
 
 from clip_mixer_tpu_torch.api import load
 from clip_mixer_tpu_torch.config import PRESETS, SIGLIP_LOGIT_SCALE_MAX, TrainConfig
-from clip_mixer_tpu_torch.data.pipeline import SyntheticSource
+from clip_mixer_tpu_torch.data.pipeline import (
+    CacheSource,
+    FileListSource,
+    MixtureSource,
+    SyntheticSource,
+    TarShardSource,
+    expand_shard_pattern,
+)
+from clip_mixer_tpu_torch.evals.validators import (
+    CosineSimValidator,
+    ImageNetValidator,
+    MNISTValidator,
+    RetrievalValidator,
+    SST2Validator,
+)
 from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.ops.augment import source_size
 from clip_mixer_tpu_torch.train.trainer import Trainer
@@ -39,8 +61,6 @@ EXIT_NONFINITE = 13  # clip_mixer_tpu/launch.py:169
 
 # flag -> the ROADMAP.md item that ports its machinery
 NOT_PORTED = {
-    "--data": "Queue 1 item 10b (the tar, file-list and mixture sources)",
-    "--val-data": "Queue 1 item 10b and Slice E (the retrieval validator)",
     "--fsdp": "Slice F (item 16, FSDP2)",
     "--tensor-parallel": "Slice F (item 16, DTensor)",
     "--pipeline-stages": "Slice F (item 16, GPipe)",
@@ -54,8 +74,11 @@ NOT_PORTED = {
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", default="mixer-b32", choices=sorted(PRESETS.keys()))
-    p.add_argument("--data", action="append", default=None, help="not ported yet")
-    p.add_argument("--val-data", default=None, help="not ported yet")
+    p.add_argument("--data", action="append", default=None,
+                   help="tar-shard glob (local or scheme://), .csv/.tsv manifest or image directory; "
+                        "repeat as GLOB::WEIGHT for a mixture of tar globs")
+    p.add_argument("--val-data", default=None,
+                   help="held-out split for the retrieval validator (any --data form but a mixture)")
     p.add_argument("--val-samples", type=int, default=2048)
     p.add_argument("--caption-from", default="txt", choices=("txt", "dirname", "stem"))
     p.add_argument("--synthetic", action="store_true", help="synthetic data (smoke runs)")
@@ -109,8 +132,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def refuse_unported(args: argparse.Namespace) -> None:
     """SystemExit for the first flag set whose machinery is not ported."""
     given = {
-        "--data": args.data is not None,
-        "--val-data": args.val_data is not None,
         "--fsdp": args.fsdp,
         "--tensor-parallel": args.tensor_parallel > 1,
         "--pipeline-stages": args.pipeline_stages > 1,
@@ -122,8 +143,100 @@ def refuse_unported(args: argparse.Namespace) -> None:
     for flag, on in given.items():
         if on:
             raise SystemExit(f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, {NOT_PORTED[flag]}")
-    if args.cache_data is not None:
+    if args.cache_data is not None and (args.synthetic or args.data is None):
         raise SystemExit("--cache-data needs --data (synthetic data is already RAM-speed)")
+
+
+def parse_data_spec(spec):
+    """A ``--data`` value -> (glob pattern, weight). ``::WEIGHT`` is a weight
+    only if the tail parses as a float (paths may contain ``::``); an
+    explicit weight that is not positive and finite exits."""
+    pattern, sep, w = spec.rpartition("::")
+    if sep and pattern:
+        try:
+            weight = float(w)
+        except ValueError:
+            return spec, 1.0
+        if not (weight > 0 and math.isfinite(weight)):
+            raise SystemExit(f"--data {spec!r}: weight after '::' must be a positive number, got {w!r}")
+        return pattern, weight
+    return spec, 1.0
+
+
+def build_single_source(pattern, caption_from="txt", **source_kwargs):
+    """One source from a spec: a ``.csv`` / ``.tsv`` manifest or an image
+    directory (:class:`FileListSource`; a directory holding ``.tar`` files
+    is read as shards), else a tar-shard glob, local or remote
+    (:class:`TarShardSource`)."""
+    if pattern.lower().endswith((".csv", ".tsv")):
+        return FileListSource.from_csv(pattern, **source_kwargs)
+    if "://" in pattern:
+        shards = expand_shard_pattern(pattern)
+        if not shards:
+            raise SystemExit(f"no shards match {pattern}")
+        return TarShardSource(shards, **source_kwargs)
+    if os.path.isdir(pattern):
+        tars = sorted(glob.glob(os.path.join(pattern, "**", "*.tar"), recursive=True))
+        if tars:
+            return TarShardSource(tars, **source_kwargs)
+        return FileListSource.from_folder(pattern, caption_from=caption_from, **source_kwargs)
+    shards = sorted(glob.glob(pattern))
+    if not shards:
+        raise SystemExit(f"no shards match {pattern}")
+    return TarShardSource(shards, **source_kwargs)
+
+
+def build_data(args, cfg, image_size):
+    """The training source ``--data`` / ``--cache-data`` / ``--synthetic`` ask for."""
+    if args.synthetic or args.data is None:
+        return SyntheticSource(batch_size=args.global_batch_size, image_size=image_size,
+                               n_batches=args.steps_per_epoch or 100, context_length=cfg.context_length)
+    source_kwargs = dict(batch_size=args.global_batch_size, image_size=image_size,
+                         context_length=cfg.context_length, shuffle_buffer=args.shuffle_buffer, on_decode_error=args.on_decode_error, seed=args.seed)
+    if len(args.data) == 1:
+        data = build_single_source(parse_data_spec(args.data[0])[0], args.caption_from, **source_kwargs)
+    else:
+        components, weights = [], []
+        for spec in args.data:
+            pattern, weight = parse_data_spec(spec)
+            if pattern.lower().endswith((".csv", ".tsv")) or os.path.isdir(pattern):
+                raise SystemExit("--data mixtures support tar-shard globs only; a .csv/.tsv manifest or "
+                                 "image directory must be the sole --data argument")
+            shards = expand_shard_pattern(pattern)
+            if not shards:
+                raise SystemExit(f"no shards match {pattern}")
+            components.append(shards)
+            weights.append(weight)
+        if args.steps_per_epoch is None:
+            raise SystemExit("a --data mixture streams indefinitely (small components repeat to hold "
+                             "the ratio): set --steps-per-epoch")
+        data = MixtureSource(components, weights=weights, **source_kwargs)
+    if args.cache_data is None:
+        return data
+    if isinstance(data, MixtureSource):
+        raise SystemExit("--cache-data does not compose with --data mixtures (a mixture streams "
+                         "indefinitely; cache the packed components instead)")
+    data.shuffle_buffer = 0  # cached epochs are full permutations
+    cache_dir = args.cache_data if isinstance(args.cache_data, str) else None
+    return CacheSource(data, cache_dir=cache_dir, seed=args.seed)
+
+
+def build_validators(args, cfg, device):
+    """The four remote validators unless ``--no-validators``, and retrieval
+    over ``--val-data`` whenever it is given; each holds no model: the
+    trainer hands it the host weights."""
+    validators = []
+    if not args.no_validators:
+        validators = [ImageNetValidator(None, cfg, device=device), CosineSimValidator(None, cfg, device=device),
+                      SST2Validator(None, cfg, device=device), MNISTValidator(None, cfg, device=device)]
+    if args.val_data:
+        # the model's resolution (no augmentation headroom), the tail batch kept
+        val_source = build_single_source(args.val_data, args.caption_from, batch_size=min(256, args.val_samples),
+                                         image_size=cfg.image_resolution, context_length=cfg.context_length,
+                                         drop_last=False, on_decode_error=args.on_decode_error)
+        validators.append(RetrievalValidator(None, cfg, data_source=val_source, max_samples=args.val_samples,
+                                             device=device))
+    return validators
 
 
 def init_model(path: str, cfg, seed: int, device):
@@ -175,15 +288,7 @@ def main(argv=None) -> None:
     )
     # with augmentation the source is larger and the step crops it back
     source_res = source_size(cfg.image_resolution) if args.augment else cfg.image_resolution
-    data = SyntheticSource(
-        batch_size=args.global_batch_size,
-        image_size=source_res,
-        n_batches=args.steps_per_epoch or 100,
-        context_length=cfg.context_length,
-    )
-    if not args.no_validators:
-        print("train_cli: the validators are not ported yet (ROADMAP.md, Slice E); training runs without "
-              "them (--no-validators silences this)", flush=True)
+    data = build_data(args, cfg, source_res)
     trainer = Trainer(
         cfg, tcfg, data,
         run_dir=os.path.join("outputs", args.run_name),
@@ -191,6 +296,7 @@ def main(argv=None) -> None:
         grad_through_gather=args.grad_through_gather,
         chunk_size=args.chunk_size,
         model=model,
+        validators=build_validators(args, cfg, args.device),
         verbose=args.verbose,
         profile_steps=args.profile_steps,
     )

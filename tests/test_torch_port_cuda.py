@@ -600,3 +600,35 @@ def test_load_of_a_reference_checkpoint_on_the_card(cuda, tmp_path, wrapping):
     assert float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min()) >= 0.99999
     cmodel, _ = compat.load(path)
     assert cmodel.dtype == torch.bfloat16 and cmodel.device.type == "cuda"
+
+
+@pytest.mark.parametrize("route", ["fused_mlp", "fused_block"])
+def test_zeroshot_head_on_a_kernel_route_matches_the_plain_route(cuda, route):
+    """The zero-shot head (classifier and logits) with the channel mix
+    through ``ln_mlp`` or both towers through ``mixer_tower_fused``, against
+    the same weights' plain route on the card, f32: every class column at
+    cosine >= 0.9999, logits within 1e-3 relative; the route's kernel
+    launched, the other not."""
+    from clip_mixer_tpu_torch.evals import zeroshot
+    from clip_mixer_tpu_torch.evals.quant_gate import synthetic_images
+
+    classes, templates = ["cat", "dog", "car", "tree"], ["a photo of a {}.", "a drawing of a {}.",
+                                                         "a close-up of a {}.", "an image of the {}."]
+    plain = _quant_model(cuda, "float32")
+    routed = _quant_model(cuda, "float32")
+    if route == "fused_mlp":
+        for m in routed.modules():
+            if hasattr(m, "fused_mlp"):
+                m.fused_mlp = True
+    else:
+        kmb.route_towers(routed, True)
+    images = synthetic_images(12, 64, seed=5)
+    ln_mlp.launches = fused_mixer_block_tbd.launches = 0
+    w = zeroshot.build_zeroshot_classifier(routed, classes, templates, batch_size=8)
+    logits = zeroshot.make_image_classifier(routed, w)(images)
+    assert (ln_mlp.launches > 0) == (route == "fused_mlp")
+    assert (fused_mixer_block_tbd.launches > 0) == (route == "fused_block")
+    want_w = zeroshot.build_zeroshot_classifier(plain, classes, templates, batch_size=8)
+    want = zeroshot.make_image_classifier(plain, want_w)(images)
+    assert float((w * want_w).sum(0).min()) >= 0.9999
+    assert np.linalg.norm(logits - want) / np.linalg.norm(want) <= 1e-3
