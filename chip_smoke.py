@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
-its model loading, its serving CLI, its evals and its real-data sources on one CUDA card and check its kernels.
+its model loading, its serving CLI, its evals, its real-data sources, its frozen serving programs, its
+release and its C++ tokenizer on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -232,6 +233,32 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    validators on the run's export; and a shard with a ``.jpg`` member under
    ``--on-decode-error substitute`` (``mixer-debug``: the decode is tested), which must exit non-zero with the
    ``ImportError`` naming Pillow where Pillow is absent (train where present).
+
+11. Frozen serving programs, the release and the C++ tokenizer, full-width
+   Mixer-B/32 (bf16, seed-0 weights), every launch counter set to 0 before
+   each part and read after it. 11a: ``aot.export_servable`` of the
+   ``fused_mlp`` model and of the fused-block route (buckets 8 and 128),
+   each loaded by ``load_servable``: ``encode_text`` of 5 and 40 captions
+   and ``encode_image_arrays`` of 7 and 100 images bit for bit the live
+   engine's on the same model, with 12 ``ln_mlp`` (``fused_mlp``) or 12
+   ``fused_mixer_block`` launches a tower call and nothing else; the plain
+   route's programs (bucket 8) launch neither. Export seconds and ``.pt2``
+   bytes a program, load seconds, and each tower at bucket 128 frozen
+   beside live (CUDA events, in turns). 11b: int8 programs from an
+   artifact of both towers (phase 6's calibration recipe), bit for bit the
+   live int8 engine's, launching nothing. 11c: ``scripts/torch_release.py``
+   on a port export: with its default int8 it must abort (``RELEASE
+   ABORTED``: the text gate fails on these weights, n = 4,096) and freeze
+   nothing; ``--no-int8`` then releases, ``--verify`` passes on it, and
+   ``python -m clip_mixer_tpu_torch.serving`` started on it says it serves
+   frozen programs and answers ``/healthz``, ``/encode_text`` and
+   ``/encode_image`` bit for bit as an in-process ``load_servable``
+   engine; ``train_cli --freeze-serving`` (``mixer-debug``, 2 steps)
+   writes an export that ``load_servable`` serves. 11d: the C++
+   tokenizer's build (before phase 1), and the 80,000 ImageNet prompts
+   tokenized cold and warm, equal to the Python BPE's tokens, beside its
+   time; the engine's tokens on the CPU tests' corpus equal the Python
+   BPE's.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -3671,6 +3698,346 @@ def eval_path(dev, counters):
     return out
 
 
+# ---- phase 11: frozen serving programs, the release and the fast tokenizer -------
+
+FROZEN_BUCKETS = (8, 128)  # the float programs of 11a
+FROZEN_SMALL_BUCKETS = (8,)  # the plain witness, the int8 programs and the release
+RELEASE_GATE_N = 4096  # the release's gates, phase 6's n
+FROZEN_TRAIN_ARGS = ["--synthetic", "--preset", "mixer-debug", "--global-batch-size", "8", "--steps-per-epoch", "2",
+                     "--epochs", "1", "--checkpoint-every", "2", "--no-validators", "--freeze-serving"]
+# the CPU tests' tokenizer corpus (tests/test_torch_port_fast_tokenizer.py, from tests/test_fast_tokenizer.py)
+TOKENIZER_CORPUS = [
+    "a photo of a cat", "A Photo   of\ta DOG!!", "it's can't we're I've i'm they'll she'd", "12345 67 8",
+    "naïve café résumé", "日本語のテキスト", "emoji 🚀🔥 test", "x", "", "&amp;amp; &lt;tag&gt;",
+    "punctuation... --- ???!!", "don''t '' 'x ''s", "!!'s mid-run contraction swallow",
+    "<|startoftext|> embedded <|endoftext|>", "!!<|endoftext|> swallowed special", "a" * 300,
+    "the quick brown fox jumps over the lazy dog", "ｆｕｌｌｗｉｄｔｈ", "tab\tand\nnewline  collapse",
+    "mixed 'll'd're endings", "прекрасный день сегодня", "数字123と文字",
+    "aͅb", "it'ſ ok", "xͅͅ!",  # where the JAX package's C++ tokenizer leaves the Python contract
+]
+
+
+def tower_call(engine, modality, x):
+    """One call of an engine's tower path on a device batch (no host copy)."""
+    fn, module = engine._image_path if modality == "image" else engine._text_path
+    with torch.inference_mode():
+        return fn(module, x)
+
+
+def host_ms(fn, iters=3):
+    """Host milliseconds a call takes to enqueue its work (no synchronise
+    inside the timed calls): above the call's device time, the host sets
+    the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def program_files(out):
+    sdir = os.path.join(out, "servable")
+    return {f: os.path.getsize(os.path.join(sdir, f)) for f in sorted(os.listdir(sdir)) if f.endswith(".pt2")}
+
+
+def frozen_route(dev, counters, cfg, route, root, images, buckets=FROZEN_BUCKETS):
+    """Export one route of full-width Mixer-B/32 (seed-0 weights), load it,
+    and hold its features and launches a tower call against a live engine
+    on the same model; tower ms at the largest bucket beside the live one."""
+    from clip_mixer_tpu_torch import CLIP, aot
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+
+    kernel = {"fused_mlp": "ln_mlp", "fused_block": "fused_mixer_block", "plain": None}[route]
+    model = CLIP(cfg.replace(fused_mlp=route == "fused_mlp"), device=dev, generator=torch.Generator().manual_seed(0))
+    if route == "fused_block":
+        route_towers(model, True)
+    out_dir = os.path.join(root, route)
+    t0 = time.perf_counter()
+    aot.export_servable(model, out_dir, batch_buckets=buckets)
+    export_s = time.perf_counter() - t0
+    files = program_files(out_dir)
+    t0 = time.perf_counter()
+    frozen = aot.load_servable(out_dir, device=dev)
+    load_s = time.perf_counter() - t0
+    require(frozen.frozen and aot.serving_route(frozen.model) == route, f"{route}: {aot.read_manifest(out_dir)}")
+    live = InferenceEngine(model, batch_buckets=buckets)
+    out = {"export_s": export_s, "programs": len(files), "export_s_per_program": export_s / len(files),
+           "pt2_bytes": files, "model_pt_bytes": os.path.getsize(os.path.join(out_dir, "model.pt")),
+           "load_servable_s": load_s}
+
+    calls = [("text", n, lambda e, n=n: e.encode_text(TEXTS[:n])) for n in (5, 40)]
+    calls += [("image", n, lambda e, n=n: e.encode_image_arrays(images[:n])) for n in (7, 100)]
+    if max(buckets) < 100:
+        calls = [k for k in calls if k[1] <= max(buckets)]
+    launches = {k: 0 for k in ("ln_mlp", "fused_mixer_block", "preprocess")}
+    for modality, n, call in calls:
+        deltas = dict.fromkeys(launches, 0)
+        if kernel:
+            deltas[kernel] = cfg.vision_layers if modality == "image" else cfg.text_layers
+        counters.reset()  # the frozen programs' own launches, read just after their call
+        got = call(frozen)
+        c = expect(counters, dict.fromkeys(launches, 0), f"frozen {route} {modality}({n})", **deltas)
+        launches = {k: v + c[k] for k, v in launches.items()}
+        check_features(got, n, cfg.embed_dim, f"frozen {route} {modality}({n})")
+        want = call(live)
+        expect(counters, c, f"live {route} {modality}({n})", **deltas)
+        require(np.array_equal(got, want), f"frozen {route} {modality}({n}): features differ from the live engine "
+                f"(max abs {float(np.abs(got - want).max())})")
+    out["launches"] = launches
+    B = max(buckets)
+    R, ctx = cfg.image_resolution, cfg.context_length
+    x_img = torch.from_numpy(np.ascontiguousarray(images[:B, :R, :R])).to(dev)
+    x_txt = torch.from_numpy(tokenize_texts((TEXTS * (-(-B // len(TEXTS))))[:B], ctx)).to(dev)
+    for modality, x in (("image", x_img), ("text", x_txt)):
+        ways = {"frozen": lambda: tower_call(frozen, modality, x), "live": lambda: tower_call(live, modality, x)}
+        out[f"{modality}_b{B}_ms"] = in_turns(ways)
+        out[f"{modality}_b{B}_host_ms"] = {k: host_ms(fn) for k, fn in ways.items()}
+    log(f"phase 11a {route}: export {export_s:.1f} s ({len(files)} programs), load {load_s:.1f} s, "
+        f"bucket {B} ms {out.get(f'image_b{B}_ms')} / {out.get(f'text_b{B}_ms')}, launches {out['launches']}")
+    return out, model, frozen
+
+
+def frozen_int8(dev, counters, model, root):
+    """11b: int8 programs from an artifact of both towers (phase 6's
+    calibration recipe), bit for bit the live int8 engine's."""
+    from clip_mixer_tpu_torch import aot
+    from clip_mixer_tpu_torch.evals import quant_gate as gates
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+
+    cfg = model.cfg
+    artifact = os.path.join(root, "scales.npz")
+    calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+    InferenceEngine(model).enable_int8(calib, CAPTIONS, save_calibration=artifact)
+    out_dir = os.path.join(root, "int8")
+    t0 = time.perf_counter()
+    aot.export_servable(model, out_dir, batch_buckets=FROZEN_SMALL_BUCKETS, int8_calibration=artifact)
+    out = {"export_s": time.perf_counter() - t0, "pt2_bytes": program_files(out_dir)}
+    t0 = time.perf_counter()
+    frozen = aot.load_servable(out_dir, device=dev)
+    out["load_servable_s"] = time.perf_counter() - t0
+    live = InferenceEngine(model, batch_buckets=FROZEN_SMALL_BUCKETS)
+    live.enable_int8(calibration=artifact)
+    require(frozen.path_kinds == live.path_kinds == {"image": "int8", "text": "int8"}, frozen.path_kinds)
+    probe = gates.synthetic_images(7, cfg.image_resolution, seed=5)
+    counters.reset()
+    for what, fn in (("image", lambda e: e.encode_image_arrays(probe)), ("text", lambda e: e.encode_text(TEXTS[:5]))):
+        got = fn(frozen)
+        check_features(got, len(got), cfg.embed_dim, f"frozen int8 {what}")
+        require(np.array_equal(got, fn(live)), f"frozen int8 {what}: features differ from the live int8 engine")
+    out["launches"] = counters.read()
+    require(not any(out["launches"].values()), f"the int8 programs launched a kernel: {out['launches']}")
+    log(f"phase 11b int8: {out}")
+    return out
+
+
+def serve_frozen_subprocess(release, engine, images, log_path):
+    """``python -m clip_mixer_tpu_torch.serving --model <release>`` in a
+    process of its own: it must say it serves frozen programs, and its
+    /healthz, /encode_text and /encode_image must answer bit for bit as
+    ``engine`` (an in-process ``load_servable`` of the same release)."""
+    from clip_mixer_tpu_torch.client import ServingClient
+
+    port = free_port()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_path = log_path + ".out"
+    with open(log_path, "w") as err, open(out_path, "w") as stdout:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "clip_mixer_tpu_torch.serving", "--model", release,
+                                 "--port", str(port), *SERVE_ARGS], cwd=repo, stdout=stdout, stderr=err)
+    try:
+        client = ServingClient(f"http://127.0.0.1:{port}", timeout=120, retries=0)
+        health = None
+        while health is None:
+            if proc.poll() is not None:
+                with open(log_path) as f:
+                    require(False, f"the serving CLI exited {proc.returncode}: {f.read()[-4000:]}")
+            require(time.perf_counter() - t0 < SERVE_TIMEOUT_S, "the serving CLI never answered /healthz")
+            try:
+                health = client.healthz()
+            except Exception:
+                time.sleep(0.2)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        with open(out_path) as f:
+            said = f.read()
+        require(f"frozen programs loaded from {release}/servable" in said and "frozen=True" in said, said)
+        require(health["frozen"] is True and health["paths"] == engine.path_kinds, health)
+        text = client.encode_text(TEXTS[:5])
+        image = client.encode_image_files([base64.b64decode(b) for b in npy_b64(images)])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    require(np.array_equal(text, engine.encode_text(TEXTS[:5])), "the CLI's /encode_text differs from load_servable's")
+    require(np.array_equal(image, engine.encode_image_arrays(images)),
+            "the CLI's /encode_image differs from load_servable's")
+    return {"first_healthz_ms": first_ms, "said": said.strip().splitlines()}
+
+
+def frozen_release(dev, counters, model, root):
+    """11c: scripts/torch_release.py on a port export of the plain model:
+    int8 aborts on the text gate with nothing frozen; --no-int8 releases;
+    --verify passes; the serving CLI serves it frozen; train_cli
+    --freeze-serving writes an export that load_servable serves."""
+    import contextlib
+    import io
+
+    from clip_mixer_tpu_torch import aot
+    from clip_mixer_tpu_torch.api import save_pretrained
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_release
+
+    cfg = model.cfg
+    src = os.path.join(root, "export")
+    save_pretrained(model, cfg, src)
+    out = {}
+    dev_flags = list(SERVE_ARGS)
+    buckets = ",".join(map(str, FROZEN_SMALL_BUCKETS))
+
+    def release(*argv):
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        code = 0
+        with contextlib.redirect_stdout(said):
+            try:
+                torch_release.main([*argv, *dev_flags])
+            except SystemExit as e:
+                code = e.code if e.code is not None else 0
+        return code, said.getvalue(), time.perf_counter() - t0
+
+    aborted = os.path.join(root, "release_int8")
+    code, said, s = release("--model", src, "--out", aborted, "--gate-n", str(RELEASE_GATE_N), "--buckets", buckets)
+    require(code not in (0, None) and "RELEASE ABORTED" in str(code), f"the int8 release did not abort: {code} {said}")
+    require(not os.path.exists(os.path.join(aborted, "servable")), "the aborted release froze programs")
+    require(not os.path.exists(os.path.join(aborted, "RELEASE.json")), "the aborted release wrote RELEASE.json")
+    out["int8_release"] = {"s": s, "exit": str(code), "gates": [line for line in said.splitlines() if "gate" in line]}
+    log(f"phase 11c int8 release: {out['int8_release']}")
+
+    rel = os.path.join(root, "release")
+    code, said, s = release("--model", src, "--out", rel, "--no-int8", "--buckets", buckets)
+    require(code == 0, f"the --no-int8 release failed: {code} {said}")
+    out["float_release_s"] = s
+    code, said, s = release("--out", rel, "--verify")
+    require(code == 0 and "VERIFY OK: float release" in said, f"--verify: {code} {said}")
+    out["verify"] = {"s": s, "said": said.strip()}
+
+    engine = aot.load_servable(rel, device=dev)
+    images = np.random.default_rng(11).integers(0, 256, (4, cfg.image_resolution, cfg.image_resolution, 3),
+                                                dtype=np.uint8)
+    counters.reset()
+    out["cli"] = serve_frozen_subprocess(rel, engine, images, os.path.join(root, "cli.log"))
+    out["cli_check_launches"] = counters.read()  # the in-process engine's: the plain route, none
+
+    # train_cli in this process (it writes outputs/<run-name> under the working directory)
+    from clip_mixer_tpu_torch import train_cli
+
+    run = os.path.join(root, "train")
+    os.makedirs(run)
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(run)
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main([*FROZEN_TRAIN_ARGS, *SERVE_ARGS, "--run-name", "frozen"])
+    finally:
+        os.chdir(cwd)
+    s = time.perf_counter() - t0
+    export = os.path.join(run, "outputs", "frozen", "export")
+    trained = aot.load_servable(export, device=dev)
+    feats = trained.encode_text(TEXTS[:3])
+    check_features(feats, 3, trained.cfg.embed_dim, "train_cli --freeze-serving export")
+    out["train_cli"] = {"s": s, "buckets": aot.read_manifest(export)["buckets"], "frozen": trained.frozen}
+    log(f"phase 11c: {out}")
+    return out
+
+
+def fast_tokenizer_check(dev, build_s):
+    """11d: the C++ tokenizer on the 80,000 ImageNet prompts, cold and warm,
+    against the Python BPE's tokens and time, and the engine's tokens on the
+    CPU tests' corpus."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.evals.prompts import IMAGENET_CLASSNAMES, PROMPT_TEMPLATES
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+    from clip_mixer_tpu_torch.text import fast
+    from clip_mixer_tpu_torch.text.bpe import get_tokenizer
+    from clip_mixer_tpu_torch.text.tokenize import tokenize
+
+    prompts = [t.format(c) for c in IMAGENET_CLASSNAMES for t in PROMPT_TEMPLATES]
+    out = {"build_s": build_s, "prompts": len(prompts)}
+    fast.clear_cache()
+    t0 = time.perf_counter()
+    cold = fast.fast_tokenize(prompts, 77, truncate=True)
+    out["cold_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = fast.fast_tokenize(prompts, 77, truncate=True)
+    out["warm_s"] = time.perf_counter() - t0
+    get_tokenizer().clear_cache()
+    t0 = time.perf_counter()
+    want = tokenize(prompts, 77, truncate=True)
+    out["python_s"] = time.perf_counter() - t0
+    require(np.array_equal(cold, want) and np.array_equal(warm, want), "fast_tokenize differs from the Python BPE")
+
+    cfg = PRESETS["mixer-debug"]
+    engine = InferenceEngine(CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0)), batch_buckets=(32,))
+    fn, module = engine._text_path
+    seen = []
+    engine._text_path = (lambda m, t: (seen.append(t.cpu().numpy()), fn(m, t))[1], module)
+    engine.encode_text(TOKENIZER_CORPUS)
+    got = np.concatenate(seen)[: len(TOKENIZER_CORPUS)]
+    require(np.array_equal(got, tokenize(TOKENIZER_CORPUS, cfg.context_length, truncate=True)),
+            "the engine's tokens differ from the Python BPE's on the corpus")
+    out["engine_corpus_texts"] = len(TOKENIZER_CORPUS)
+    log(f"phase 11d tokenizer: {out}")
+    return out
+
+
+def frozen_path(dev, counters, tokenizer_build_s):
+    """Phase 11: frozen serving programs of full-width Mixer-B/32 (bf16,
+    seed-0 weights) on three routes and in int8, the release, the CLI on a
+    release, train_cli --freeze-serving, and the C++ tokenizer."""
+    import shutil
+    import tempfile
+
+    from clip_mixer_tpu_torch import PRESETS
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["mixer-b32"]
+    R = cfg.image_resolution
+    images = np.random.default_rng(0).integers(0, 256, (128, R, R, 3), dtype=np.uint8)
+    root = tempfile.mkdtemp(prefix="chip_smoke_frozen_")
+    out, launches = {}, {}
+    try:
+        free_card()
+        for route in ("fused_mlp", "fused_block"):
+            out[route], model, _ = frozen_route(dev, counters, cfg, route, root, images)
+            launches[route] = out[route]["launches"]
+            del model
+            free_card()
+        out["plain"], plain_model, _ = frozen_route(dev, counters, cfg, "plain", root, images, FROZEN_SMALL_BUCKETS)
+        launches["plain"] = out["plain"]["launches"]
+        require(not any(launches["plain"].values()), f"the plain programs launched a kernel: {launches['plain']}")
+        emit({"frozen_programs": {k: out[k] for k in ("fused_mlp", "fused_block", "plain")}})
+        out["int8"] = frozen_int8(dev, counters, plain_model, root)
+        launches["int8"] = out["int8"]["launches"]
+        out["release"] = frozen_release(dev, counters, plain_model, root)
+        emit({"frozen_release": {"int8": out["int8"], "release": out["release"]}})
+        del plain_model
+        free_card()
+        out["tokenizer"] = fast_tokenizer_check(dev, tokenizer_build_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def write_npy_tar(path, n):
     """A webdataset-style tar of ``n`` uint8 256x256 ``.npy`` images (numpy seed 13)."""
     import io
@@ -3685,6 +4052,19 @@ def write_npy_tar(path, n):
             info.size = buf.tell()
             buf.seek(0)
             tar.addfile(info, buf)
+
+
+def tokenizer_build_times() -> dict:
+    """Build the C++ tokenizer (``g++``, into ``build/tokenizer/``), its
+    scanner tables and its merge table, each timed; phase 11d reports them."""
+    from clip_mixer_tpu_torch.text import fast
+
+    out = {}
+    for what, fn in (("compile_s", fast.build), ("tables_s", fast.build_tables), ("load_s", fast._instance)):
+        t0 = time.perf_counter()
+        fn()
+        out[what] = time.perf_counter() - t0
+    return out
 
 
 def nvidia_smi() -> str:
@@ -3717,6 +4097,8 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "wgmma", "setmaxnreg")) or "error" in line.lower():
                 log(f"ptxas {name}: {line.strip()}")
     log(f"built {_build.all_sources()} in {build_s:.1f} s")
+    tokenizer_build = tokenizer_build_times()
+    log(f"built the C++ tokenizer: {tokenizer_build}")
 
     ln_cases = check_ln_mlp(dev)
     pre_cases = check_preprocess(dev)
@@ -3775,7 +4157,16 @@ def main() -> int:
     emit({"evals": evals})
     for row in kernels:  # each kernel's launches in phase 10's parts
         row["eval_launches"] = {k: v[row["name"]] for k, v in evals["launches"].items()}
-    emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"]})
+    frozen = frozen_path(dev, counters, tokenizer_build)
+    emit({"frozen_tokenizer": frozen["tokenizer"]})
+    require(frozen["launches"]["fused_mlp"]["ln_mlp"] > 0, "the fused_mlp programs never launched ln_mlp")
+    require(frozen["launches"]["fused_block"]["fused_mixer_block"] > 0,
+            "the fused-block programs never launched fused_mixer_block")
+    for row in kernels:  # each kernel's launches by the frozen programs of phase 11, added to the path's
+        row["frozen_launches"] = {k: v[row["name"]] for k, v in frozen["launches"].items()}
+        row["launches"] += sum(row["frozen_launches"].values())
+    emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
+          "frozen_s": frozen["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

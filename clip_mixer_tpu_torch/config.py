@@ -194,12 +194,13 @@ class TrainConfig:
     the optimiser, schedule, loss, accumulation, clamp, EMA, freeze and
     augmentation fields; its trainer (``train/trainer.py``) reads the batch,
     epoch and step counts, the checkpoint and validation cadences, the
-    retention, the non-finite abort, the fault drills, ``max_inflight_steps``
-    and the seed. Four fields wait: ``fsdp`` and ``pipeline_microbatches``
-    for the multi-device steps and ``preemption_sync_every_steps`` for the
-    multi-process stop (Slice F), ``freeze_serving`` for the frozen serving
-    programs (Slice C). They are carried and validated as the JAX package
-    validates them; the trainer refuses ``fsdp`` and ``freeze_serving``.
+    retention, the non-finite abort, the fault drills, ``max_inflight_steps``,
+    the seed and ``freeze_serving`` (the export's frozen serving programs,
+    ``aot.freeze_programs``). Three fields wait: ``fsdp`` and
+    ``pipeline_microbatches`` for the multi-device steps and
+    ``preemption_sync_every_steps`` for the multi-process stop (Slice F).
+    They are carried and validated as the JAX package validates them; the
+    trainer refuses ``fsdp``.
     """
 
     global_batch_size: int = 32768

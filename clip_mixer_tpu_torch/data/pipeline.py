@@ -38,7 +38,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from clip_mixer_tpu_torch.text.tokenize import tokenize
+# captions go through the C++ tokenizer, as in the JAX sources
+from clip_mixer_tpu_torch.text.fast import fast_tokenize as tokenize
 
 CAPTION_NAMES = (
     "red square", "green circle", "blue triangle", "yellow star",

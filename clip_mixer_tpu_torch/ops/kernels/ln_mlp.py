@@ -229,16 +229,44 @@ def plain_vjp(plain, saved, grad):
     return torch.autograd.grad(out, inputs, grad)
 
 
+# The forward as operators that torch.export records as one node each
+# (ctypes calls on data_ptr() cannot be traced): clip_mixer::ln_mlp returns
+# the output, clip_mixer::ln_mlp_out writes it into ``out`` for the
+# differentiable form, whose output a selective checkpoint keeps (see
+# _LnMlp). Their bodies are _forward: the kernels on CUDA tensors, the plain
+# version on CPU tensors, the parameters already in x.dtype. Registered
+# through torch.library.Library, whose calls cost less host time than
+# torch.library.custom_op's.
+def _ln_mlp_impl(x, ln_w, ln_b, w_in, b_in, w_out, b_out):
+    return _forward(x, ln_w, ln_b, w_in, b_in, w_out, b_out, torch.empty_like(x))
+
+
+def _ln_mlp_out_impl(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out):
+    _forward(x, ln_w, ln_b, w_in, b_in, w_out, b_out, out)
+
+
+_OPS = torch.library.Library("clip_mixer", "FRAGMENT")
+_ARGS = "Tensor x, Tensor ln_w, Tensor ln_b, Tensor w_in, Tensor b_in, Tensor w_out, Tensor b_out"
+_OPS.define(f"ln_mlp({_ARGS}) -> Tensor")
+_OPS.define(f"ln_mlp_out({_ARGS}, Tensor(a!) out) -> ()")
+_OPS.impl("ln_mlp", _ln_mlp_impl, "CompositeExplicitAutograd")
+_OPS.impl("ln_mlp_out", _ln_mlp_out_impl, "CompositeExplicitAutograd")
+torch.library.register_fake("clip_mixer::ln_mlp", lambda x, *params: torch.empty_like(x), lib=_OPS)
+ln_mlp_op = torch.ops.clip_mixer.ln_mlp.default
+ln_mlp_out_op = torch.ops.clip_mixer.ln_mlp_out.default
+
+
 class _LnMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, compute, x, *params):
         ctx.save_for_backward(x, *params)
         # The output first: with compute=False this is the only op, the
         # forward's first, as a selective checkpoint's recompute requires
-        # (it replays a prefix of the forward's ops).
+        # (it replays a prefix of the forward's ops, and hands back the
+        # forward's output for this allocation).
         out = torch.empty_like(x)
         if compute:
-            _forward(x, *(p.to(x.dtype) for p in params), out)
+            ln_mlp_out_op(x, *(p.to(x.dtype) for p in params), out)
         return out
 
     @staticmethod
@@ -252,8 +280,14 @@ def ln_mlp(x, ln_w, ln_b, w_in, b_in, w_out, b_out, *, compute: bool = True) -> 
     (gradients reach them in their own dtype). ``compute=False`` records the
     call for the backward and launches nothing, leaving the output
     uninitialised: for a rematerialised block's recompute, which runs only
-    for what the backward saves (here, the inputs)."""
-    return _LnMlp.apply(compute, x, ln_w, ln_b, w_in, b_in, w_out, b_out)
+    for what the backward saves (here, the inputs). Without autograd (under
+    ``torch.no_grad`` or ``inference_mode``, as serving and its export run)
+    it is :func:`ln_mlp_op` on the cast parameters."""
+    _on_card("ln_mlp", x)  # a meta tensor would reach only the operator's fake
+    params = (ln_w, ln_b, w_in, b_in, w_out, b_out)
+    if torch.is_grad_enabled() or not compute:
+        return _LnMlp.apply(compute, x, *params)
+    return ln_mlp_op(x, *(p.to(x.dtype) for p in params))
 
 
 ln_mlp.launches = 0

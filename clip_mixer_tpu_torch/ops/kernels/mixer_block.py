@@ -212,14 +212,14 @@ def _launch(entry, what, device, *args) -> None:
 
 
 def _forward(x, *params) -> torch.Tensor:
-    """The kernels on CUDA tensors, the plain version on CPU tensors."""
+    """The kernels on CUDA tensors, the plain version on CPU tensors; the
+    output keeps x's layout on both, so a tower's activations stay [B, T, D]."""
+    out = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
     if not _on_card("fused_mixer_block_tbd", x):
-        return _plain(x, *params)
+        return out.copy_(_plain(x, *params))
     _check("fused_mixer_block_tbd", x, params)
     T, B, D = x.shape
     U, H = params[2].shape[0], params[8].shape[0]
-    # the output keeps x's layout, so a tower's activations stay [B, T, D]
-    out = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
     if B == 0:
         return out
     args = [x.data_ptr(), out.data_ptr(), x.stride(0), x.stride(1), B, T, U, D, H, *(t.data_ptr() for t in params)]
@@ -254,11 +254,26 @@ def token_mix(x, lt_w, lt_b, w1, b1, w2, b2, lc_w, lc_b) -> Tuple[torch.Tensor, 
     return z, y2
 
 
+# One block as one operator, clip_mixer::mixer_block, which torch.export
+# records as one node: x [T, B, D] and the twelve parameters in x's dtype,
+# in the kernel's order; its body is _forward. Its fake keeps x's strides,
+# as the real output does (a contiguous one would make a recorded program
+# disagree with the run).
+_OPS = torch.library.Library("clip_mixer", "FRAGMENT")
+_OPS.define("mixer_block(Tensor x, Tensor[] params) -> Tensor")
+_OPS.impl("mixer_block", lambda x, params: _forward(x, *params), "CompositeExplicitAutograd")
+torch.library.register_fake(
+    "clip_mixer::mixer_block",
+    lambda x, params: torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device), lib=_OPS)
+mixer_block_op = torch.ops.clip_mixer.mixer_block.default
+
+
 def fused_mixer_block_tbd(block, x: torch.Tensor) -> torch.Tensor:
     """One mixer block on x [T, B, D] (token-major, as the JAX function);
     the result has x's shape, dtype and strides. Not differentiable on the
     card: :func:`mixer_block_fused` is."""
-    return _forward(x, *block_params(block, x.dtype))
+    _on_card("fused_mixer_block_tbd", x)
+    return mixer_block_op(x, list(block_params(block, x.dtype)))
 
 
 fused_mixer_block_tbd.launches = 0
@@ -274,7 +289,7 @@ class _MixerBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, *params):
         ctx.save_for_backward(x, *params)
-        return _forward(x, *(p.to(x.dtype) for p in params))
+        return mixer_block_op(x, [p.to(x.dtype) for p in params])
 
     @staticmethod
     def backward(ctx, grad):
@@ -284,8 +299,14 @@ class _MixerBlock(torch.autograd.Function):
 def mixer_block_fused(block, x: torch.Tensor) -> torch.Tensor:
     """Differentiable :func:`fused_mixer_block_tbd`: takes the block's
     parameters as it holds them (the f32 masters) and casts them for the
-    kernels itself; gradients reach x and the masters."""
-    return _MixerBlock.apply(x, *block_parameters(block))
+    kernels itself; gradients reach x and the masters. Without autograd
+    (``torch.no_grad``, ``inference_mode``) it is :func:`mixer_block_op` on
+    the cast parameters."""
+    _on_card("mixer_block_fused", x)
+    params = block_parameters(block)
+    if torch.is_grad_enabled():
+        return _MixerBlock.apply(x, *params)
+    return mixer_block_op(x, [p.to(x.dtype) for p in params])
 
 
 def mixer_tower_fused(tower, x: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from clip_mixer_tpu_torch.ops.kernels import _build
+from clip_mixer_tpu_torch.ops.kernels.ln_mlp import _on_card
 from clip_mixer_tpu_torch.ops.preprocess import _cached_matrices, norm_constants, resize
 
 _P = ctypes.c_void_p
@@ -210,12 +211,11 @@ def _lib():
     return lib
 
 
-def preprocess(images: torch.Tensor, bands: ResizeBands, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """uint8 [B, H, W, 3] -> normalised [B, n_px, n_px, 3] ``dtype``."""
-    if images.device.type == "cpu":
-        return preprocess_plain(images, bands, dtype)
-    if images.device.type != "cuda":
-        raise ValueError(f"preprocess runs on CUDA or CPU tensors, got {images.device}")
+def _forward(images: torch.Tensor, bands: ResizeBands, dtype: torch.dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors; a
+    contiguous [B, n_px, n_px, 3] ``dtype`` on both."""
+    if not _on_card("preprocess", images):
+        return preprocess_plain(images, bands, dtype).contiguous()
     h, w = bands.input_hw
     n = bands.n_px
     if images.dtype != torch.uint8 or images.dim() != 4 or tuple(images.shape[1:]) != (h, w, 3):
@@ -244,6 +244,31 @@ def preprocess(images: torch.Tensor, bands: ResizeBands, dtype: torch.dtype = to
     _build.check(rc, "preprocess")
     preprocess.launches += 1
     return out
+
+
+def _preprocess_impl(images, rh, rw, rh_taps, rh_start, rw_taps, rw_start, norm, dtype):
+    return _forward(images, ResizeBands(rh, rw, rh_taps, rh_start, rw_taps, rw_start, norm), dtype)
+
+
+def _preprocess_fake(images, rh, rw, rh_taps, rh_start, rw_taps, rw_start, norm, dtype):
+    return images.new_empty((images.shape[0], rh.shape[0], rh.shape[0], 3), dtype=dtype)
+
+
+# The kernel as one operator, clip_mixer::preprocess, which torch.export
+# records as one node; its tensors are a ResizeBands' fields in order.
+_OPS = torch.library.Library("clip_mixer", "FRAGMENT")
+_OPS.define("preprocess(Tensor images, Tensor rh, Tensor rw, Tensor rh_taps, Tensor rh_start, Tensor rw_taps, "
+            "Tensor rw_start, Tensor norm, ScalarType dtype) -> Tensor")
+_OPS.impl("preprocess", _preprocess_impl, "CompositeExplicitAutograd")
+torch.library.register_fake("clip_mixer::preprocess", _preprocess_fake, lib=_OPS)
+preprocess_op = torch.ops.clip_mixer.preprocess.default
+
+
+def preprocess(images: torch.Tensor, bands: ResizeBands, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """uint8 [B, H, W, 3] -> normalised [B, n_px, n_px, 3] ``dtype``."""
+    _on_card("preprocess", images)  # a meta tensor would reach only the operator's fake
+    return preprocess_op(images, bands.rh, bands.rw, bands.rh_taps, bands.rh_start, bands.rw_taps, bands.rw_start,
+                         bands.norm, dtype)
 
 
 preprocess.launches = 0

@@ -17,11 +17,14 @@ Counterpart of the single-device part of ``clip_mixer_tpu/serving.py``:
   [...]} and /retrieve {"texts": [...], "top_k": k};
 * :func:`main`, the command line (``python -m clip_mixer_tpu_torch.serving
   --model <name or path>``), serves on the card unless ``--device`` names
-  another; :func:`build_server` builds its server and engine without
-  serving, and ``clip_mixer_tpu_torch/client.py`` is its client.
+  another, and serves a directory holding ``servable/manifest.json``
+  (``aot.export_servable``, ``scripts/torch_release.py``) through its
+  recorded programs unless ``--no-frozen`` is given; :func:`build_server`
+  builds its server and engine without serving, and
+  ``clip_mixer_tpu_torch/client.py`` is its client.
 
-Multi-device engines (``--all-devices``, ROADMAP.md item 16) and frozen
-programs (item 12c) are not ported yet: the CLI refuses both.
+Multi-device engines (``--all-devices``, ROADMAP.md item 16) are not ported
+yet: the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from clip_mixer_tpu_torch.ops.quant import (
     text_quant_fns,
     tower_kind,
 )
-from clip_mixer_tpu_torch.text.tokenize import tokenize
+from clip_mixer_tpu_torch.text.fast import fast_tokenize
 
 
 def encoder_fns(cfg: CLIPConfig, int8: bool = False, input_hw=None):
@@ -159,6 +162,7 @@ class InferenceEngine:
         self._image_path = (image_fn, self.model)
         self._text_path = (text_fn, self.model)
         self.path_kinds = {"image": "float", "text": "float"}
+        self.frozen = False  # aot.load_servable: the paths run recorded programs
         self._classifier: Optional[np.ndarray] = None
         self._classnames: Optional[List[str]] = None
         self._index = None  # (L2-normalised features [N, D], ids): numpy, or a tensor on the device
@@ -213,7 +217,7 @@ class InferenceEngine:
                     sample = normalize_images(x, dtype=dt)
                 scales = _numpy_tree(calibrate(self.model, sample))
             if t_scales is None and sample_texts:
-                tokens = tokenize(list(sample_texts), cfg.context_length, truncate=True)
+                tokens = fast_tokenize(list(sample_texts), cfg.context_length, truncate=True)
                 t_scales = _numpy_tree(t_calibrate(self.model, torch.from_numpy(tokens).to(dev)))
         if scales is None and t_scales is None:
             raise ValueError(
@@ -227,9 +231,11 @@ class InferenceEngine:
         if scales is not None:
             self._image_path = (image_fn_q, quantize(self.model, scales))  # one attribute write
             self.path_kinds["image"] = "int8"
+            self.frozen = False  # live now, even on a load_servable engine
         if t_scales is not None:
             self._text_path = (text_fn_q, t_quantize(self.model, t_scales))
             self.path_kinds["text"] = "int8"
+            self.frozen = False
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -260,7 +266,7 @@ class InferenceEngine:
         return self._run_padded(self._image_path, images_u8)
 
     def encode_text(self, texts: Sequence[str]) -> np.ndarray:
-        tokens = tokenize(list(texts), self.cfg.context_length, truncate=True)
+        tokens = fast_tokenize(list(texts), self.cfg.context_length, truncate=True)
         return self._run_padded(self._text_path, tokens)
 
     def encode_image_arrays(self, images_u8: np.ndarray, coalesce: bool = False) -> np.ndarray:
@@ -546,6 +552,7 @@ def make_handler(engine: InferenceEngine, stats: Optional[ServerStats] = None):
                         "input_hw": engine.input_hw,
                         "buckets": list(engine.buckets),
                         "paths": dict(engine.path_kinds),
+                        "frozen": engine.frozen,
                         "device": str(engine.device),
                         "index_size": 0 if engine._index is None else len(engine._index[1]),
                     },
@@ -622,26 +629,40 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--input-size", type=int, default=None, metavar="N",
                    help="accept NxN source images and resize them on the device; clients must send "
                         "exactly that resolution")
+    p.add_argument("--no-frozen", action="store_true",
+                   help="ignore recorded servable/ programs in --model and serve the live model instead "
+                        "(an export_servable or release directory is served frozen by default)")
     p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
     return p.parse_args(argv)
 
 
 def build_server(argv=None):
-    """The CLI's ``(server, engine)``, not yet serving: the model from
-    ``api.load``, int8 from an artifact, then the index, the warmup (after
-    the index, so a device bank's similarity runs too) and the classifier,
-    in the JAX CLI's order."""
+    """The CLI's ``(server, engine)``, not yet serving: the recorded
+    programs of a frozen directory (``aot.load_servable``), or the model
+    from ``api.load`` with int8 from an artifact; then the index, the warmup
+    (after the index, so a device bank's similarity runs too) and the
+    classifier, in the JAX CLI's order."""
+    from clip_mixer_tpu_torch import aot
+
     args = parse_args(argv)
     if args.all_devices:
         raise SystemExit("--all-devices is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, "
                          "Queue 1 item 16 (multi-GPU, Slice F)")
-    if os.path.isfile(os.path.join(args.model, "servable", "manifest.json")):
-        raise SystemExit(f"{args.model} holds frozen programs (servable/manifest.json), which the port cannot "
-                         "serve yet and must not re-trace: ROADMAP.md, Queue 1 item 12c")
-    model, _, _ = load(args.model, device=args.device)
-    engine = InferenceEngine(model, input_hw=(args.input_size, args.input_size) if args.input_size else None)
-    if args.int8:
-        engine.enable_int8(calibration=args.int8)
+    frozen_dir = os.path.isfile(os.path.join(args.model, "servable", "manifest.json"))
+    if frozen_dir and not args.no_frozen:
+        for flag, name in ((args.int8, "--int8"), (args.input_size, "--input-size")):
+            if flag:
+                raise SystemExit(f"{name} would re-trace the encoders, discarding the recorded programs in "
+                                 f"{args.model}; pass --no-frozen to serve the live model with it")
+        engine = aot.load_servable(args.model, device=args.device)
+        print(f"frozen programs loaded from {args.model}/servable", flush=True)
+    else:
+        model, _, _ = load(args.model, device=args.device)
+        if frozen_dir:  # the live model on the route its programs were recorded on
+            aot.apply_route(model, aot.read_manifest(args.model).get("route", "plain"))
+        engine = InferenceEngine(model, input_hw=(args.input_size, args.input_size) if args.input_size else None)
+        if args.int8:
+            engine.enable_int8(calibration=args.int8)
     if args.index:
         engine.load_index_file(args.index)
         print(f"retrieval index loaded: {len(engine._index[1])} entries", flush=True)
@@ -663,7 +684,7 @@ def build_server(argv=None):
 def main(argv=None) -> None:
     server, engine = build_server(argv)
     print(f"serving on :{server.server_address[1]} ({engine.cfg.tower}, {engine.device}, "
-          f"paths {engine.path_kinds})", flush=True)
+          f"paths {engine.path_kinds}, frozen={engine.frozen})", flush=True)
     try:
         server.serve_forever()
     finally:

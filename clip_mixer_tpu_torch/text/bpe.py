@@ -10,7 +10,9 @@ whitespace collapse, lowercase; the reference pre-tokenizer
 written out by hand with ``unicodedata`` (``L*`` categories for \\p{L},
 ``N*`` for \\p{N}, Unicode White_Space for \\s); then the greedy
 lowest-rank merge loop with a ``</w>`` end-of-word marker and a per-word
-cache. The merge table is read by path from the JAX package's data file.
+cache. The merge table is the port's copy of the reference's
+``bpe_simple_vocab_16e6.txt.gz`` (``text/vocab/``, byte for byte the JAX
+package's).
 """
 
 from __future__ import annotations
@@ -49,8 +51,7 @@ _CASE_VARIANT_OF_LETTER = "\u0345"
 
 @functools.lru_cache()
 def default_vocab_path() -> str:
-    repo = Path(__file__).resolve().parents[2]
-    return str(repo / "clip_mixer_tpu" / "text" / "vocab" / "bpe_simple_vocab_16e6.txt.gz")
+    return str(Path(__file__).resolve().parent / "vocab" / "bpe_simple_vocab_16e6.txt.gz")
 
 
 def _is_space(ch: str) -> bool:

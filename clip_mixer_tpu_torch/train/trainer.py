@@ -96,10 +96,8 @@ class Trainer:
         profile_steps: int = 0,
     ):
         require_local(run_dir, "run_dir")
-        for name in ("fsdp", "freeze_serving"):
-            if getattr(tcfg, name):
-                raise ValueError(f"TrainConfig.{name} is not ported yet (ROADMAP.md, "
-                                 f"{'Slice F' if name == 'fsdp' else 'Slice C'})")
+        if tcfg.fsdp:
+            raise ValueError("TrainConfig.fsdp is not ported yet (ROADMAP.md, Slice F)")
         self.cfg, self.tcfg, self.data = cfg, tcfg, data
         self.verbose = verbose
         self.profile_steps = profile_steps
@@ -393,10 +391,17 @@ class Trainer:
         """Write the inference export (``api.save_pretrained``: config.json
         and the reference-keyed ``model.pt``) to ``path``, by default
         ``{run_dir}/export``; returns the path. Checkpoints hold the
-        optimiser state too and are not what serving loads."""
+        optimiser state too and are not what serving loads. With
+        ``tcfg.freeze_serving`` the export also gets the frozen serving
+        programs (``aot.freeze_programs``), which ``aot.load_servable``
+        feeds the exported weights."""
         path = path or os.path.join(self.run_dir, "export")
         t0 = time.perf_counter()
         save_pretrained(self._host_params(), self.cfg, path)
+        if self.tcfg.freeze_serving:
+            from clip_mixer_tpu_torch.aot import freeze_programs
+
+            freeze_programs(self.state.model, path)
         self.timings["export_s"] = time.perf_counter() - t0
         return path
 

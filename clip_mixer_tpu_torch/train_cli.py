@@ -64,7 +64,6 @@ NOT_PORTED = {
     "--fsdp": "Slice F (item 16, FSDP2)",
     "--tensor-parallel": "Slice F (item 16, DTensor)",
     "--pipeline-stages": "Slice F (item 16, GPipe)",
-    "--freeze-serving": "Slice C (item 12, frozen programs)",
     "--coordinator": "Slice F (item 16, multi-process launch)",
     "--num-processes": "Slice F (item 16, multi-process launch)",
     "--process-id": "Slice F (item 16, multi-process launch)",
@@ -104,7 +103,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="serve every epoch from a host-RAM cache (needs --data)")
     p.add_argument("--shuffle-buffer", type=int, default=10000)
     p.add_argument("--on-decode-error", default="raise", choices=["raise", "substitute"])
-    p.add_argument("--freeze-serving", action="store_true", help="not ported yet")
+    p.add_argument("--freeze-serving", action="store_true",
+                   help="also record the frozen serving programs into the export (aot.freeze_programs)")
     p.add_argument("--loss", default="info_nce", choices=["info_nce", "siglip"])
     p.add_argument("--init-from", default=None, metavar="PATH",
                    help="initialise from whatever api.load takes (a port export directory, a torch "
@@ -135,7 +135,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         "--fsdp": args.fsdp,
         "--tensor-parallel": args.tensor_parallel > 1,
         "--pipeline-stages": args.pipeline_stages > 1,
-        "--freeze-serving": args.freeze_serving,
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
@@ -285,6 +284,7 @@ def main(argv=None) -> None:
         ema_decay=args.ema_decay,
         freeze=args.freeze_tower,
         augment=args.augment,
+        freeze_serving=args.freeze_serving,
     )
     # with augmentation the source is larger and the step crops it back
     source_res = source_size(cfg.image_resolution) if args.augment else cfg.image_resolution

@@ -632,3 +632,58 @@ def test_zeroshot_head_on_a_kernel_route_matches_the_plain_route(cuda, route):
     want = zeroshot.make_image_classifier(plain, want_w)(images)
     assert float((w * want_w).sum(0).min()) >= 0.9999
     assert np.linalg.norm(logits - want) / np.linalg.norm(want) <= 1e-3
+
+
+def test_custom_ops_match_their_plain_versions(cuda):
+    """The ``clip_mixer::`` operators, called as operators, against the
+    plain versions of their kernels; each adds one launch."""
+    args = _ln_mlp_args(400, 768, torch.bfloat16, cuda, seed=14)
+    before = ln_mlp.launches
+    got = torch.ops.clip_mixer.ln_mlp(*args)
+    assert ln_mlp.launches == before + 1
+    assert _rel_err(got - args[0], ln_mlp_plain(*args) - args[0]) < BRANCH_TOL
+
+    block = MixerBlock(256, 49)
+    init_mixer_block(block, text_tower=False, n_layers=12, generator=torch.Generator().manual_seed(14))
+    block = block.to(cuda)
+    x = torch.randn(8, 49, 256, generator=torch.Generator().manual_seed(15)).to(cuda, torch.bfloat16)
+    xt = x.transpose(0, 1)  # the tower's [T, B, D] view
+    before = fused_mixer_block_tbd.launches
+    got = torch.ops.clip_mixer.mixer_block(xt, list(kmb.block_params(block, torch.bfloat16)))
+    assert fused_mixer_block_tbd.launches == before + 1 and got.stride() == xt.stride()
+    assert _rel_err(got - xt, mixer_block_plain(block, xt) - xt) < BRANCH_TOL
+
+    bands = kpre.ResizeBands.build((256, 256), 224, cuda)
+    images = torch.randint(0, 256, (8, 256, 256, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(16))
+    images = images.to(cuda)
+    before = kpre.preprocess.launches
+    got = torch.ops.clip_mixer.preprocess(images, *(getattr(bands, f.name) for f in dataclasses.fields(bands)),
+                                          torch.float32)
+    assert kpre.preprocess.launches == before + 1 and got.is_contiguous()
+    torch.testing.assert_close(got, kpre.preprocess_plain(images, bands, torch.float32), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("route", ["fused_mlp", "fused_block"])
+def test_frozen_program_matches_the_live_engine(cuda, tmp_path, route):
+    """A frozen mixer-debug program in bf16 widths the kernels take, on the
+    card: its features bit for bit the live engine's on the same route, its
+    launches one a block."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS, aot
+    from clip_mixer_tpu_torch.serving import InferenceEngine
+
+    cfg = PRESETS["mixer-debug"].replace(vision_width=128, text_width=128, text_heads=2, compute_dtype="bfloat16",
+                                         fused_mlp=route == "fused_mlp")
+    model = CLIP(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    if route == "fused_block":
+        kmb.route_towers(model, True)
+    out = aot.export_servable(model, str(tmp_path / "srv"), batch_buckets=(8,))
+    frozen = aot.load_servable(out)
+    live = InferenceEngine(model, batch_buckets=(8,))
+    texts = ["a photo of a cat", "two dogs", "a red car"]
+    images = np.random.default_rng(0).integers(0, 256, (5, 32, 32, 3), dtype=np.uint8)
+    counter = ln_mlp if route == "fused_mlp" else fused_mixer_block_tbd
+    before = counter.launches
+    got_t, got_i = frozen.encode_text(texts), frozen.encode_image_arrays(images)
+    assert counter.launches == before + cfg.text_layers + cfg.vision_layers
+    np.testing.assert_array_equal(got_t, live.encode_text(texts))
+    np.testing.assert_array_equal(got_i, live.encode_image_arrays(images))

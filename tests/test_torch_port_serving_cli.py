@@ -152,10 +152,11 @@ def test_cli_refusals(setup, tmp_path, case):
         with pytest.raises(SystemExit, match="--all-devices is not ported .* item 16"):
             build_server(["--model", setup["export"], "--device", "cpu", "--all-devices"])
         return
+    # a frozen directory refuses the flags that would re-trace its encoders, before loading anything
     os.makedirs(tmp_path / "servable")
     (tmp_path / "servable" / "manifest.json").write_text("{}")
-    with pytest.raises(SystemExit, match="frozen programs .* item 12c"):
-        build_server(["--model", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--int8 would re-trace the encoders.*--no-frozen"):
+        build_server(["--model", str(tmp_path), "--device", "cpu", "--int8", "scales.npz"])
 
 
 def test_cli_defaults_to_the_card(setup, monkeypatch):

@@ -63,7 +63,6 @@ UNPORTED = {
     "--fsdp": ["--fsdp"],
     "--tensor-parallel": ["--tensor-parallel", "2"],
     "--pipeline-stages": ["--pipeline-stages", "2"],
-    "--freeze-serving": ["--freeze-serving"],
     "--coordinator": ["--coordinator", "localhost:1234"],
     "--num-processes": ["--num-processes", "2"],
     "--process-id": ["--process-id", "0"],
