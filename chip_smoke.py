@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
 its model loading, its serving CLI, its evals, its real-data sources, its frozen serving programs, its
-release and its C++ tokenizer on one CUDA card and check its kernels.
+release, its C++ tokenizer and its data-parallel layer on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -259,6 +259,35 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    tokenized cold and warm, equal to the Python BPE's tokens, beside its
    time; the engine's tokens on the CPU tests' corpus equal the Python
    BPE's.
+
+12. The data-parallel layer at full width in a world of one over NCCL (the
+   card's host has one card, and NCCL takes no two ranks on one card),
+   every launch counter read around the calls it counts. 12a: full-width
+   Mixer-B/32 (bf16, f32 masters, EMA 0.999, augmentation on: 256x256
+   sources cropped to 224) takes 3 steps at B = 256 on each route (plain,
+   ``fused_mlp``: 24 ``ln_mlp`` launches a step, fused-block: 24
+   ``fused_mixer_block`` launches a step) through ``make_train_step(...,
+   group=)``, in turns with the single-device step on the same state and
+   batches: each loss, and after the last step every parameter, buffer,
+   Adam moment and EMA, bit for bit; one step each with
+   ``grad_through_gather=True`` and with GradCache (``accum_steps=2``),
+   bit for bit too. Reports each step's ms (CUDA events) and peak memory,
+   both ways, and the flat gradient bucket: ``average_gradients`` ms and
+   its all-reduce alone. 12b: RN50 (BN drawn) 2 steps at B = 256 with
+   SyncBN, and one Mixer-B/32 SigLIP step through the ring's form of the
+   loss (at a world of one, one tick and no hop), each bit for bit the
+   single-device step. 12c: ``python -m clip_mixer_tpu_torch.train_cli
+   --coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0``
+   (full-width Mixer-B/32, ``--fused-mlp``, global batch 256): 4 steps
+   straight, beside a run the drill stops after its checkpoint at step 2,
+   resumed by a third process; the two final checkpoints bit for bit;
+   seconds to the first step. 12d: ``InferenceEngine(devices=[the card])``
+   and ``export_servable(mesh=[the card])`` of full-width Mixer-B/32 on the
+   fused-block and ``fused_mlp`` routes on 256x256 sources: text and image
+   features bit for bit the single-device engine's, the bench front end
+   (``preprocess`` a device chunk, then the image tower) split over the
+   mesh bit for bit the single-device one, the device bank's top-5 alike,
+   and the towers at bucket 128 timed three ways in turns.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -4067,6 +4096,411 @@ def tokenizer_build_times() -> dict:
     return out
 
 
+# ---- phase 12: data-parallel training and multi-device serving --------------
+
+DP_B = 256  # 12a/12b's global batch (a world of one holds all of it)
+DP_STEPS = 3  # 12a: steps on each route, each beside the single-device step
+DP_RN_STEPS = 2  # 12b: RN50 steps with SyncBN
+DP_EMA = 0.999
+DP_ALLREDUCE_ITERS = 5
+DP_CLI_B = 256
+DP_CLI_STEPS = 4  # 12c: the uninterrupted run; the interrupted one stops after DP_CLI_CRASH and resumes
+DP_CLI_CRASH = 2
+DP_CLI_ARGS = ["--synthetic", "--preset", "mixer-b32", "--fused-mlp", "--no-validators", "--epochs", "1"]
+DP_CLI_DEVICE = []  # extra train_cli flags (a CPU rehearsal: --device cpu)
+DP_CLI_TIMEOUT_S = 300
+DP_BUCKET = 128  # 12d: the engines' and the mesh programs' bucket
+DP_BANK_ROWS = 16384  # 12d: the device bank (DEVICE_BANK_MIN_ROWS)
+
+
+def same_bits(a: dict, b: dict, what: str) -> None:
+    """Every tensor of ``a`` equal to ``b``'s bit for bit (the same keys)."""
+    require(set(a) == set(b), f"{what}: keys differ {sorted(set(a) ^ set(b))[:5]}")
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    require(not diff, f"{what}: not bit for bit at {diff[:5]} (max abs "
+            f"{max(float((a[k].float() - b[k].float()).abs().max()) for k in diff[:5]) if diff else 0})")
+
+
+def train_state_tensors(state) -> dict:
+    """A train state's parameters and buffers, Adam moments and EMA, by name."""
+    out = {f"model.{k}": v.detach() for k, v in state.model.state_dict().items()}
+    opt = state.opt_state
+    for what, d in (("mu", opt.mu), ("nu", opt.nu), ("ema", opt.ema)):
+        out.update({f"{what}.{k}": v for k, v in (d or {}).items()})
+    return out
+
+
+def dp_pair(dev, cfg, tcfg, group, fused_block=False, **kw):
+    """The single-device step and the data-parallel one (over ``group``), each
+    on its own CLIP from seed 0 (for a ResNet, BN drawn)."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.parallel.mesh import replicate
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    pair = {}
+    for name, g in (("single", None), ("dp", group)):
+        model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        if cfg.is_resnet:
+            perturb_bn(model.visual)
+        replicate(g, model)
+        if fused_block:
+            route_towers(model, True)
+        opt = make_optimizer(tcfg, total_steps=DP_STEPS)
+        pair[name] = (init_train_state(model, opt), make_train_step(cfg, tcfg, opt, group=g, **kw))
+    return pair
+
+
+def dp_steps(dev, counters, cfg, tcfg, group, batches, what, per_step=None, fused_block=False, **kw):
+    """The single-device and the data-parallel step in turns over ``batches``
+    (a device batch each): each step's loss and, after the last, every
+    parameter, buffer, Adam moment and EMA bit for bit; each step timed with
+    CUDA events and its peak memory read; the data-parallel steps' launches
+    (``per_step`` a step, where given)."""
+    pair = dp_pair(dev, cfg, tcfg, group, fused_block=fused_block, **kw)
+    free_card()
+    times = {"single": [], "dp": []}
+    peaks = {"single": [], "dp": []}
+    launches = dict.fromkeys(counters.read(), 0)
+    dp_losses = []
+    for i, batch in enumerate(batches):
+        losses = {}
+        for name in ("single", "dp"):
+            state, step = pair[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before = counters.read()
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            end.synchronize()
+            if name == "dp":
+                c = counters.read()
+                launches = {k: v + c[k] - before[k] for k, v in launches.items()}
+                if per_step is not None:
+                    expect(counters, before, f"{what} step {i + 1}", **per_step)
+            times[name].append(start.elapsed_time(end))
+            peaks[name].append(torch.cuda.max_memory_allocated() / 1e9)
+            losses[name] = m["loss"].detach().clone()
+            require(bool(torch.isfinite(m["loss"])), f"{what} {name} step {i + 1}: loss {float(m['loss'])}")
+        require(torch.equal(losses["single"], losses["dp"]),
+                f"{what} step {i + 1}: loss {float(losses['dp'])} data-parallel, {float(losses['single'])} single")
+        dp_losses.append(float(losses["dp"]))
+    same_bits(train_state_tensors(pair["dp"][0]), train_state_tensors(pair["single"][0]), f"{what} final state")
+    out = {"steps": len(batches), "step_ms": times, "peak_mem_gb": peaks, "launches": launches,
+           "losses": dp_losses, "bit_for_bit": True}
+    return out, pair
+
+
+def allreduce_ms(state, group):
+    """The flat gradient bucket of ``state``'s last step: ``average_gradients``
+    (flatten, all-reduce, unflatten) and its all-reduce alone, ms each with
+    CUDA events over DP_ALLREDUCE_ITERS calls (at a world of one the mean
+    leaves every gradient's bits as they were)."""
+    import torch.distributed as dist
+
+    from clip_mixer_tpu_torch.parallel.train_step import average_gradients
+
+    params = dict(state.model.named_parameters())
+    flat = torch.cat([p.grad.reshape(-1) for p in params.values() if p.grad is not None])
+    loss = torch.zeros((), device=flat.device)
+    out = {"bucket_bytes": flat.numel() * 4,
+           "average_gradients_ms": cuda_ms(lambda: average_gradients(params, loss, group), DP_ALLREDUCE_ITERS),
+           "all_reduce_ms": cuda_ms(lambda: dist.all_reduce(flat, group=group), DP_ALLREDUCE_ITERS)}
+    out["bucket_gb_per_s"] = out["bucket_bytes"] / (out["all_reduce_ms"] * 1e-3) / 1e9
+    return out
+
+
+def dp_train(dev, counters, group):
+    """12a: full-width Mixer-B/32 (bf16, f32 masters, EMA, augmentation on)
+    takes DP_STEPS steps at DP_B on each route through the data-parallel
+    step, beside the single-device step on the same state and batches, bit
+    for bit; one step each with grad_through_gather and with GradCache."""
+    import dataclasses
+
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.ops.augment import source_size
+
+    base = PRESETS["mixer-b32"]
+    tcfg = TrainConfig(augment=True, ema_decay=DP_EMA)
+    src = dataclasses.replace(base, image_resolution=source_size(base.image_resolution))
+    batches = [on_device(train_batch(src, DP_B, seed=s), dev) for s in (20, 21, 22)]
+    blocks = base.vision_layers + base.text_layers
+    out = {"B": DP_B, "source_hw": src.image_resolution, "ema_decay": DP_EMA}
+    for route in ("plain", "fused_mlp", "fused_block"):
+        cfg = base.replace(fused_mlp=route == "fused_mlp")
+        # a launch a block in the forward; the backward runs the unfused chain (phase 4's count)
+        per_step = {"ln_mlp": blocks if route == "fused_mlp" else 0,
+                    "fused_mixer_block": blocks if route == "fused_block" else 0, "preprocess": 0}
+        out[route], pair = dp_steps(dev, counters, cfg, tcfg, group, batches, f"12a {route}", per_step,
+                                    fused_block=route == "fused_block")
+        if route == "plain":
+            out["bucket"] = allreduce_ms(pair["dp"][0], group)
+        del pair
+        free_card()
+        log(f"phase 12a {route}: bit for bit; step ms {out[route]['step_ms']}, peak GB {out[route]['peak_mem_gb']}")
+    for name, kw in (("grad_through_gather", dict(grad_through_gather=True)), ("gradcache_accum2", dict(accum_steps=2))):
+        out[name], pair = dp_steps(dev, counters, base, tcfg, group, batches[:1], f"12a {name}", **kw)
+        del pair
+        free_card()
+    out["launches"] = {k: sum(out[r]["launches"][k] for r in ("plain", "fused_mlp", "fused_block")) for k in
+                       out["plain"]["launches"]}
+    return out
+
+
+def dp_syncbn_siglip(dev, counters, group):
+    """12b: RN50 (BN drawn) takes DP_RN_STEPS steps at DP_B with SyncBN over
+    the group, beside the single-device step: loss, parameters and running
+    statistics bit for bit; and one SigLIP step of Mixer-B/32 through the
+    ring's form of the loss, beside the single-device SigLIP step."""
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.config import SIGLIP_LOGIT_SCALE_MAX, TrainConfig
+
+    out = {}
+    cfg = PRESETS[RN_PRESET]
+    batches = [on_device(train_batch(cfg, DP_B, seed=s), dev) for s in (23, 24)][:DP_RN_STEPS]
+    none = dict(ln_mlp=0, fused_mixer_block=0, preprocess=0)
+    out["rn50_syncbn"], pair = dp_steps(dev, counters, cfg, TrainConfig(learning_rate=VIT_TRAIN_LR), group,
+                                        batches, "12b RN50 SyncBN", none)
+    del pair, batches
+    free_card()
+    cfg = PRESETS["mixer-b32"].for_siglip()
+    batch = on_device(train_batch(cfg, DP_B, seed=25), dev)
+    out["siglip"], pair = dp_steps(dev, counters, cfg, TrainConfig(loss="siglip",
+                                                                  logit_scale_max=SIGLIP_LOGIT_SCALE_MAX),
+                                   group, [batch], "12b SigLIP", none)
+    del pair, batch
+    free_card()
+    log(f"phase 12b: RN50 SyncBN and SigLIP bit for bit; {out}")
+    return out
+
+
+def dp_cli_run(root, run_name, extra, dev_log):
+    """Start one ``train_cli`` process of a world of one (its own free port)
+    in ``root``: (the process, its start time, its heartbeat file and that
+    file's mtime before the start, None where it was absent)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    argv = [sys.executable, "-m", "clip_mixer_tpu_torch.train_cli", *DP_CLI_ARGS, *DP_CLI_DEVICE,
+            "--global-batch-size", str(DP_CLI_B), "--steps-per-epoch", str(DP_CLI_STEPS),
+            "--checkpoint-every", str(DP_CLI_CRASH), "--run-name", run_name,
+            "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1", "--process-id", "0", *extra]
+    hb = os.path.join(root, "outputs", run_name, "heartbeat-0")
+    old = os.stat(hb).st_mtime_ns if os.path.exists(hb) else None
+    t0 = time.perf_counter()
+    with open(dev_log, "w") as logf:
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    return proc, t0, hb, old
+
+
+def heartbeat_mtime(hb):
+    try:
+        return os.stat(hb).st_mtime_ns
+    except FileNotFoundError:
+        return None
+
+
+def dp_cli_wait(proc, t0, hb, old, log_path):
+    """Wait for a ``dp_cli_run`` process: its return code, seconds, the
+    seconds to its loop's start (the heartbeat's first beat) and to its
+    first step (the next), read from the file's mtime every 20 ms, and its
+    output."""
+    first, seen = {}, old
+    while proc.poll() is None:
+        require(time.perf_counter() - t0 < DP_CLI_TIMEOUT_S, f"train_cli passed {DP_CLI_TIMEOUT_S} s")
+        mtime = heartbeat_mtime(hb)
+        if mtime is not None and mtime != seen:
+            seen = mtime
+            first.setdefault("ready_s" if "ready_s" not in first else "first_step_s", time.perf_counter() - t0)
+        time.sleep(0.02)
+    with open(log_path) as f:
+        text = f.read()
+    return proc.returncode, time.perf_counter() - t0, first, text
+
+
+def dp_cli(dev):
+    """12c: ``train_cli --coordinator 127.0.0.1:<port> --num-processes 1
+    --process-id 0`` (NCCL, a world of one), full-width Mixer-B/32 on the
+    ``fused_mlp`` route, global batch DP_CLI_B: an uninterrupted run of
+    DP_CLI_STEPS steps beside one that the drill stops after DP_CLI_CRASH
+    (a checkpoint at that step), then resumed by a third process; the two
+    runs' final checkpoints bit for bit."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    out = {"argv": DP_CLI_ARGS, "B": DP_CLI_B, "steps": DP_CLI_STEPS, "crash_after": DP_CLI_CRASH}
+    try:
+        runs = {"straight": dp_cli_run(root, "straight", [], os.path.join(root, "straight.log")),
+                "crashed": dp_cli_run(root, "resumed", ["--crash-after-steps", str(DP_CLI_CRASH)],
+                                      os.path.join(root, "crashed.log"))}
+        res = {k: dp_cli_wait(*runs[k], os.path.join(root, f"{k}.log")) for k in runs}
+        rc, s, first, text = res["straight"]
+        require(rc == 0, f"train_cli (uninterrupted) exited {rc}: {text[-3000:]}")
+        out["straight"] = {"s": s, **first}
+        rc, s, first, text = res["crashed"]
+        require(rc != 0 and "fault injection" in text, f"the crash drill: exit {rc}: {text[-3000:]}")
+        out["crashed"] = {"rc": rc, "s": s}
+        rc, s, first, text = dp_cli_wait(*dp_cli_run(root, "resumed", [], os.path.join(root, "resume.log")),
+                                         os.path.join(root, "resume.log"))
+        require(rc == 0, f"train_cli (resumed) exited {rc}: {text[-3000:]}")
+        out["resumed"] = {"s": s, **first}
+        ck = {k: os.path.join(root, "outputs", r, "checkpoints") for k, r in (("straight", "straight"),
+                                                                               ("resumed", "resumed"))}
+        require(sorted(os.listdir(ck["resumed"])) == sorted(os.listdir(ck["straight"])),
+                f"checkpoints {os.listdir(ck['resumed'])} vs {os.listdir(ck['straight'])}")
+        last = str(DP_CLI_STEPS)
+        for f in ("model.pt", "train_state.pt"):
+            a = torch.load(os.path.join(ck["resumed"], last, f), map_location="cpu", weights_only=True)
+            b = torch.load(os.path.join(ck["straight"], last, f), map_location="cpu", weights_only=True)
+            if f == "train_state.pt":
+                require(a["step"] == b["step"] == DP_CLI_STEPS, f"steps {a['step']} / {b['step']}")
+                a = {f"{w}.{k}": v for w in ("mu", "nu") for k, v in a["opt_state"][w].items()}
+                b = {f"{w}.{k}": v for w in ("mu", "nu") for k, v in b["opt_state"][w].items()}
+            same_bits(a, b, f"12c resumed {f}")
+        out["resume_bit_for_bit"] = True
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 12c: {out}")
+    return out
+
+
+def dp_serving(dev, counters):
+    """12d: full-width Mixer-B/32 (bf16, seed 0) on the fused-block and the
+    fused_mlp routes behind ``InferenceEngine(devices=[the card])`` and a
+    frozen ``export_servable(mesh=[the card])``, each on 256x256 sources:
+    text and images bit for bit the single-device engine's (the engines
+    resize with the "torch" front end, as JAX's engine takes its default
+    one); the bench front end (``preprocess``, then the image tower) split
+    over the mesh by ``split_over``, one ``preprocess`` launch a device
+    chunk, bit for bit the single-device front end; the device bank's top-5
+    the same; launches counted; the towers at DP_BUCKET timed beside the
+    single-device engine's."""
+    import shutil
+    import tempfile
+
+    from clip_mixer_tpu_torch import CLIP, PRESETS, aot
+    from clip_mixer_tpu_torch.models.clip import l2_normalize
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess
+    from clip_mixer_tpu_torch.serving import InferenceEngine, split_over
+
+    base = PRESETS["mixer-b32"]
+    pre_kernel = make_batch_preprocess((256, 256), base.image_resolution, dtype=torch.bfloat16, backend="kernel")
+
+    def front_end(m, x):
+        return l2_normalize(m.encode_image(pre_kernel(x)))
+
+    hw = (256, 256)
+    rng = np.random.default_rng(26)
+    images = rng.integers(0, 256, (DP_BUCKET, *hw, 3), dtype=np.uint8)
+    bank = rng.normal(size=(DP_BANK_ROWS, base.embed_dim)).astype(np.float32)
+    ids = [f"row{i}" for i in range(DP_BANK_ROWS)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_serving_")
+    out, launches = {}, dict.fromkeys(counters.read(), 0)
+    try:
+        for route in ("fused_block", "fused_mlp"):
+            kernel = {"fused_mlp": "ln_mlp", "fused_block": "fused_mixer_block"}[route]
+            model = CLIP(base.replace(fused_mlp=route == "fused_mlp"), device=dev,
+                         generator=torch.Generator().manual_seed(0))
+            if route == "fused_block":
+                route_towers(model, True)
+            single = InferenceEngine(model, batch_buckets=(DP_BUCKET,), input_hw=hw)
+            meshed = InferenceEngine(model, batch_buckets=(DP_BUCKET,), input_hw=hw, devices=[dev])
+            t0 = time.perf_counter()
+            aot.export_servable(model, os.path.join(root, route), batch_buckets=(DP_BUCKET,), mesh=[dev],
+                                input_hw=hw)
+            export_s = time.perf_counter() - t0
+            manifest = aot.read_manifest(os.path.join(root, route))
+            require(manifest["mesh"] == {"axis_names": ["data"], "shape": [1]} and manifest["route"] == route,
+                    f"12d {route} manifest: {manifest}")
+            frozen = aot.load_servable(os.path.join(root, route), device=dev)
+            require(len(frozen.replicas) == 1 and frozen.frozen, f"12d {route}: the mesh programs' engine")
+            row = {"export_s": export_s}
+            calls = [("text", 5, lambda e: e.encode_text(TEXTS[:5])),
+                     ("image", 7, lambda e: e.encode_image_arrays(images[:7]))]
+            for modality, n, call in calls:
+                want = call(single)
+                for name, eng in (("mesh_engine", meshed), ("mesh_programs", frozen)):
+                    deltas = {"ln_mlp": 0, "fused_mixer_block": 0, "preprocess": 0}
+                    deltas[kernel] = base.vision_layers if modality == "image" else base.text_layers
+                    before = counters.read()
+                    got = call(eng)
+                    c = expect(counters, before, f"12d {route} {name} {modality}({n})", **deltas)
+                    launches = {k: v + c[k] - before[k] for k, v in launches.items()}
+                    check_features(got, n, base.embed_dim, f"12d {route} {name} {modality}")
+                    require(np.array_equal(got, want), f"12d {route} {name} {modality}({n}): features differ from "
+                            f"the single-device engine's (max abs {float(np.abs(got - want).max())})")
+            # the bench front end over the mesh layout: a preprocess launch a device chunk
+            x_img = torch.from_numpy(images).to(dev)
+            mesh_front = split_over([front_end], meshed.devices)
+            with torch.inference_mode():
+                want = front_end(model, x_img)
+                before = counters.read()
+                got = mesh_front(meshed.replicas, x_img)
+                c = expect(counters, before, f"12d {route} mesh front end", preprocess=len(meshed.devices),
+                           **{k: base.vision_layers if k == kernel else 0 for k in ("ln_mlp", "fused_mixer_block")})
+            launches = {k: v + c[k] - before[k] for k, v in launches.items()}
+            require(torch.equal(got, want), f"12d {route} mesh front end: differs from the single-device one")
+            row["front_end_ms"] = in_turns({"single": lambda: front_end(model, x_img),
+                                            "mesh": lambda: mesh_front(meshed.replicas, x_img)})
+            single.load_index(bank, ids, device=True)
+            meshed.load_index(bank, ids, device=True)
+            top = {k: [[r["id"] for r in row_] for row_ in e.retrieve(TEXTS[:5], top_k=5)]
+                   for k, e in (("single", single), ("mesh", meshed))}
+            require(top["single"] == top["mesh"], f"12d {route} device bank top-5: {top}")
+            x_txt = torch.from_numpy(tokenize_texts((TEXTS * (-(-DP_BUCKET // len(TEXTS))))[:DP_BUCKET],
+                                                    base.context_length)).to(dev)
+            for modality, x in (("image", x_img), ("text", x_txt)):
+                ways = {"single": lambda e=single: tower_call(e, modality, x),
+                        "mesh_engine": lambda e=meshed: tower_call(e, modality, x),
+                        "mesh_programs": lambda e=frozen: tower_call(e, modality, x)}
+                row[f"{modality}_b{DP_BUCKET}_ms"] = in_turns(ways)
+            out[route] = row
+            log(f"phase 12d {route}: bit for bit, top-5 alike; {row}")
+            del model, single, meshed, frozen, x_img, x_txt
+            free_card()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def dp_path(dev, counters):
+    """Phase 12: the data-parallel layer in a world of one over NCCL (the
+    card's host has one card; NCCL takes no two ranks on one card), every
+    part with the counters read around its own calls."""
+    import torch.distributed as dist
+
+    from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed
+    from clip_mixer_tpu_torch.parallel.mesh import data_group, make_mesh
+
+    t_phase = time.perf_counter()
+    require(not dist.is_initialized(), "a process group is already up")
+    require(maybe_initialize_distributed(dev, coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                                         process_id=0, timeout_s=300), "init_process_group")
+    try:
+        mesh = make_mesh(device=dev)
+        group = data_group(mesh)
+        out = {"backend": dist.get_backend(group), "world": dist.get_world_size(group),
+               "device_count": torch.cuda.device_count()}
+        log(f"phase 12: {out['backend']} world of {out['world']} on {out['device_count']} card(s)")
+        out["train"] = dp_train(dev, counters, group)
+        emit({"dp_train": out["train"]})
+        out["syncbn_siglip"] = dp_syncbn_siglip(dev, counters, group)
+        emit({"dp_syncbn_siglip": out["syncbn_siglip"]})
+    finally:
+        dist.destroy_process_group()
+    out["cli"] = dp_cli(dev)
+    out["serving"] = dp_serving(dev, counters)
+    out["launches"] = {"train": out["train"]["launches"], "serving": out["serving"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4165,8 +4599,17 @@ def main() -> int:
     for row in kernels:  # each kernel's launches by the frozen programs of phase 11, added to the path's
         row["frozen_launches"] = {k: v[row["name"]] for k, v in frozen["launches"].items()}
         row["launches"] += sum(row["frozen_launches"].values())
+    dp = dp_path(dev, counters)
+    emit({"dp": {k: v for k, v in dp.items() if k not in ("train", "syncbn_siglip")}})
+    for part, names in (("train", ("ln_mlp", "fused_mixer_block")), ("serving", ("ln_mlp", "fused_mixer_block",
+                                                                                 "preprocess"))):
+        for name in names:
+            require(dp["launches"][part][name] > 0, f"phase 12 {part} never launched {name}")
+    for row in kernels:  # each kernel's launches in phase 12's data-parallel steps and mesh serving, added
+        row["dp_launches"] = {part: dp["launches"][part][row["name"]] for part in ("train", "serving")}
+        row["launches"] += sum(row["dp_launches"].values())
     emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
-          "frozen_s": frozen["phase_s"]})
+          "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,19 @@ from as its first input, ``{name: tensor}``, as the JAX programs take
 re-derived from ``calibration.npz``). The kernels are the ``clip_mixer::``
 operators of ``ops/kernels/``, one node each in a program.
 
+``mesh=`` records the programs for a multi-device engine's layout
+(``InferenceEngine(devices=...)``): ``mesh`` is the list of devices, the
+buckets are rounded up to multiples of its length as the engine rounds
+them, each program is recorded at its bucket's share for one device, and
+the manifest records the layout as JAX's does (``{"axis_names":
+["data"], "shape": [n]}``). :func:`load_servable` rebuilds it over the
+first n cards (the CPU stands in for any n), each device running its own
+copy of the programs.
+
 Deviations from the JAX package: a program is recorded on the exporting
 process's device type, and ``platforms=`` may name only that (a ``.pt2``
-has no lowering for a platform the host lacks); ``mesh=`` is refused
-(ROADMAP.md item 16); the manifest writes ``torch_version`` where JAX
+has no lowering for a platform the host lacks); a mesh is a list of
+devices, not a ``jax.sharding.Mesh``; the manifest writes ``torch_version`` where JAX
 writes ``jax_version``, and ``route``, the tower route the programs were
 recorded on (``fused_mlp``, ``fused_block`` or ``plain``), which loading
 rebuilds on the engine's model.
@@ -152,7 +161,8 @@ def export_servable(
 
     int8_calibration: a ``quant_io`` artifact holding BOTH towers' scales;
     the programs are then the calibrated W8A8 encoders. platforms: None or
-    the model's device type only. mesh: refused (ROADMAP.md item 16)."""
+    the model's device type only. mesh: None, or the devices of the
+    engine layout the programs are for (of the model's device type)."""
     from clip_mixer_tpu_torch.api import save_pretrained
 
     check_target(model, platforms, mesh)
@@ -166,11 +176,13 @@ def export_servable(
 
 def check_target(model, platforms=None, mesh=None) -> None:
     """Raise ValueError unless ``platforms`` is None or the model's device
-    type alone, and ``mesh`` is None: what the export functions take."""
-    if mesh is not None:
-        raise ValueError("mesh= (programs recorded over several devices) is not ported to "
-                         "clip_mixer_tpu_torch yet: ROADMAP.md, Queue 1 item 16")
+    type alone, and ``mesh`` is None or a non-empty list of devices of that
+    type: what the export functions take."""
     here = torch.device(model.device).type
+    if mesh is not None:
+        types = {torch.device(d).type for d in mesh}
+        if types != {here}:
+            raise ValueError(f"mesh= must list devices of the model's type ({here!r}), got {list(mesh)!r}")
     if platforms is not None and set(platforms) != {here}:
         raise ValueError(
             f"platforms={list(platforms)!r}: a torch.export program is recorded on the exporting "
@@ -199,6 +211,8 @@ def freeze_programs(
     buckets = sorted(set(int(b) for b in batch_buckets))
     if not buckets or buckets[0] < 1:
         raise ValueError(f"batch_buckets must be positive ints, got {batch_buckets!r}")
+    n_dev = 1 if mesh is None else len(mesh)
+    buckets = sorted({-(-b // n_dev) * n_dev for b in buckets})  # InferenceEngine(devices=)'s rounding
     sdir = _sdir(out_dir)
     sdir.mkdir(parents=True, exist_ok=True)
 
@@ -217,10 +231,10 @@ def freeze_programs(
             img_mod = txt_mod = model
         R, ctx = cfg.image_resolution, cfg.context_length
         ih, iw = tuple(input_hw) if input_hw is not None else (R, R)
-        for b in buckets:
-            _record(image_fn, img_mod, torch.zeros((b, ih, iw, 3), dtype=torch.uint8, device=dev),
+        for b in buckets:  # each device runs the bucket's share of the rows
+            _record(image_fn, img_mod, torch.zeros((b // n_dev, ih, iw, 3), dtype=torch.uint8, device=dev),
                     sdir / f"image_{b}.pt2")
-            _record(text_fn, txt_mod, torch.zeros((b, ctx), dtype=torch.int32, device=dev),
+            _record(text_fn, txt_mod, torch.zeros((b // n_dev, ctx), dtype=torch.int32, device=dev),
                     sdir / f"text_{b}.pt2")
     finally:
         model.train(was_training)
@@ -230,7 +244,7 @@ def freeze_programs(
         "buckets": buckets,
         "int8": int8,
         "platforms": [dev.type],
-        "mesh": None,
+        "mesh": None if mesh is None else {"axis_names": ["data"], "shape": [n_dev]},
         "input_hw": None if input_hw is None else [ih, iw],
         "torch_version": torch.__version__,
         "route": serving_route(model),
@@ -259,17 +273,39 @@ def apply_route(model, route: str) -> None:
     _mixer_block.route_towers(model, route == "fused_block")
 
 
-def _program(path: Path) -> torch.fx.GraphModule:
+def _program(path: Path, device: Optional[torch.device] = None) -> torch.fx.GraphModule:
     """A saved program, ready to call. Its ``_assert_tensor_metadata``
     nodes go: export records one before each dtype cast (~180 a tower),
     each a check of a tensor the program itself derived from inputs that
-    were checked, run on the host at every call."""
+    were checked, run on the host at every call. ``device``: the card
+    this copy runs on; a tensor the program makes on another card of the
+    same type (an ``arange``, a ``zeros``) is made there instead."""
     gm = torch.export.load(str(path)).module()
     for node in list(gm.graph.nodes):
         if node.op == "call_function" and node.target is torch.ops.aten._assert_tensor_metadata.default:
             gm.graph.erase_node(node)
+        elif device is not None and isinstance(node.kwargs.get("device"), torch.device) \
+                and node.kwargs["device"].type == device.type and node.kwargs["device"] != device:
+            node.update_kwarg("device", device)
     gm.recompile()
     return gm
+
+
+def mesh_devices(manifest: dict, device: torch.device) -> Optional[list]:
+    """The devices a manifest's recorded layout runs on: the first n cards
+    (which this process must see), or the CPU n times; None for no mesh."""
+    if not manifest.get("mesh"):
+        return None
+    n = 1
+    for s in manifest["mesh"]["shape"]:
+        n *= int(s)
+    if device.type != "cuda":
+        return [device] * n
+    seen = torch.cuda.device_count()
+    if seen < n:
+        raise ValueError(f"servable programs were recorded over a {manifest['mesh']['shape']} device mesh "
+                         f"({n} devices) but this process sees {seen}")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def load_servable(path: str, *, check_platform: bool = True, device=None):
@@ -292,25 +328,27 @@ def load_servable(path: str, *, check_platform: bool = True, device=None):
             f"servable programs were recorded for {manifest['platforms']} but this process serves on "
             f"{dev.type!r}: re-export there, or pass check_platform=False to defer to call time"
         )
-    if manifest.get("mesh"):
-        raise ValueError("servable programs recorded over a device mesh are not ported to "
-                         "clip_mixer_tpu_torch yet: ROADMAP.md, Queue 1 item 16")
+    devices = mesh_devices(manifest, dev)
+    if devices is not None:
+        dev = devices[0]
 
     model, cfg, _ = load(str(path), device=dev)
     apply_route(model, manifest.get("route", "plain"))
     input_hw = manifest.get("input_hw")
     engine = InferenceEngine(model, batch_buckets=tuple(manifest["buckets"]),
-                             input_hw=None if input_hw is None else tuple(input_hw))
+                             input_hw=None if input_hw is None else tuple(input_hw), devices=devices)
     sdir = _sdir(path)
     if manifest["int8"]:
         art = quant_io.load_calibration(str(sdir / "calibration.npz"))
         quant_io.check_cfg(art["cfg"], cfg)
-        img_mod, txt_mod = _quantized_towers(model, art)
+        mods = [_quantized_towers(m, art) for m in engine.replicas]
     else:
-        img_mod = txt_mod = model
+        mods = [(m, m) for m in engine.replicas]
+    n_dev = len(engine.replicas)
 
-    def table(modality):
-        return {b: _program(sdir / f"{modality}_{b}.pt2") for b in manifest["buckets"]}
+    def table(modality, device):
+        # keyed by the rows one device runs: the bucket's share
+        return {b // n_dev: _program(sdir / f"{modality}_{b}.pt2", device) for b in manifest["buckets"]}
 
     def dispatch(progs):
         # a program's call runs its forward pre-hooks, where torch.export
@@ -337,8 +375,19 @@ def load_servable(path: str, *, check_platform: bool = True, device=None):
 
         return fn
 
-    engine._image_path = (dispatch(table("image")), program_state(img_mod))
-    engine._text_path = (dispatch(table("text")), program_state(txt_mod))
+    placed = {}  # one copy of the programs a distinct device
+    for m in engine.replicas:
+        d = torch.device(m.device)
+        if d not in placed:
+            placed[d] = (dispatch(table("image", d)), dispatch(table("text", d)))
+    fns = [placed[torch.device(m.device)] for m in engine.replicas]
+    states = {}  # one state a distinct module, so a replica's state dict stays the same object
+
+    def state_of(module):
+        return states.setdefault(id(module), program_state(module))
+
+    engine._image_path = engine.path([f[0] for f in fns], [state_of(i) for i, _ in mods])
+    engine._text_path = engine.path([f[1] for f in fns], [state_of(t) for _, t in mods])
     kind = "int8" if manifest["int8"] else "float"
     engine.path_kinds = {"image": kind, "text": kind}
     engine.frozen = True

@@ -196,11 +196,12 @@ class TrainConfig:
     epoch and step counts, the checkpoint and validation cadences, the
     retention, the non-finite abort, the fault drills, ``max_inflight_steps``,
     the seed and ``freeze_serving`` (the export's frozen serving programs,
-    ``aot.freeze_programs``). Three fields wait: ``fsdp`` and
-    ``pipeline_microbatches`` for the multi-device steps and
-    ``preemption_sync_every_steps`` for the multi-process stop (Slice F).
-    They are carried and validated as the JAX package validates them; the
-    trainer refuses ``fsdp``.
+    ``aot.freeze_programs``) and, across processes,
+    ``preemption_sync_every_steps`` (the cadence of the agreed stop). Two
+    fields wait: ``fsdp`` and ``pipeline_microbatches``, for the sharded
+    and pipelined steps (ROADMAP.md, item 16). They are carried and
+    validated as the JAX package validates them; the trainer refuses
+    ``fsdp``.
     """
 
     global_batch_size: int = 32768

@@ -121,6 +121,28 @@ def _concat_consuming(chunks: list) -> np.ndarray:
     return out
 
 
+class RankRowsSource(DataSource):
+    """Rank ``rank``'s rows of each batch of ``inner``, a source of global
+    batches that every rank draws alike (``SyntheticSource``): rows
+    ``[rank * B / n, (rank + 1) * B / n)``, as ``parallel/mesh.py``'s
+    ``shard_batch`` splits them."""
+
+    def __init__(self, inner: DataSource, n_ranks: int, rank: int):
+        if inner.batch_size % n_ranks:
+            raise ValueError(f"batch {inner.batch_size} is not divisible by {n_ranks} ranks")
+        self.inner, self.n_ranks, self.rank = inner, n_ranks, rank
+        self.batch_size = inner.batch_size // n_ranks
+
+    @property
+    def batches_per_epoch(self) -> Optional[int]:
+        return self.inner.batches_per_epoch
+
+    def iter_batches(self, epoch: int, start_batch: int = 0) -> Iterator[Batch]:
+        lo = self.rank * self.batch_size
+        for batch in self.inner.iter_batches(epoch, start_batch):
+            yield Batch({k: v[lo:lo + self.batch_size] for k, v in batch.items()})
+
+
 class CacheSource(DataSource):
     """Decode once, then serve every epoch from host RAM.
 

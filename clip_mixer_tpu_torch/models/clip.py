@@ -100,10 +100,11 @@ class CLIP(nn.Module):
         txt = l2_normalize(self.encode_text(text))
         return img, txt, self.logit_scale.exp()
 
-    def forward_train(self, images: torch.Tensor, text: torch.Tensor, bn_eval: bool = False):
+    def forward_train(self, images: torch.Tensor, text: torch.Tensor, bn_eval: bool = False, group=None):
         """The training forward: (image features, text features,
         exp(logit_scale), bn_stats). A ResNet vision tower normalises with
-        its batch moments, returned per BN site in ``bn_stats``
+        its batch moments (over ``group``'s ranks when one is given: SyncBN,
+        as JAX passes ``axis_name``), returned per BN site in ``bn_stats``
         (``models/resnet.py::resnet_encoder_train``) for the running-stat
         merge after the optimiser step; other towers return ``{}``.
         ``bn_eval``: the ResNet normalises with its running statistics and
@@ -112,7 +113,7 @@ class CLIP(nn.Module):
         if not self.cfg.is_resnet or bn_eval:
             img, txt, scale = self(images, text)
             return img, txt, scale, {}
-        feats, bn_stats = resnet_encoder_train(self.visual, images)
+        feats, bn_stats = resnet_encoder_train(self.visual, images, group)
         return l2_normalize(feats), l2_normalize(self.encode_text(text)), self.logit_scale.exp(), bn_stats
 
     def logits(self, images: torch.Tensor, text: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -42,6 +42,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
@@ -106,12 +107,47 @@ def bn_normalize(x: torch.Tensor, mean, var, scale, bias, eps: float = BN_EPS) -
     return ((x32 - mean) * inv * scale + bias).to(x.dtype)
 
 
-def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, var) over (N, H, W) in f32, the variance as E[x^2] - E[x]^2."""
+def mean_across(t: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``group`` (every rank holds as
+    many rows); ``t`` itself for ``group=None``."""
+    if group is None:
+        return t
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t.div_(dist.get_world_size(group))
+
+
+class _MeanAcross(torch.autograd.Function):
+    """:func:`mean_across` in the graph: the gradient of a mean over the
+    ranks is the mean of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return mean_across(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mean_across(g, ctx.group), None
+
+
+def batch_moments(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, var) over (N, H, W) in f32, the variance as E[x^2] - E[x]^2;
+    with a ``group`` (SyncBN) the mean and the mean of squares are averaged
+    over its ranks, inside the autograd graph."""
     x32 = x.float()
     mean = x32.mean(dim=(0, 1, 2))
     mean_sq = x32.square().mean(dim=(0, 1, 2))
+    if group is not None:
+        mean, mean_sq = _MeanAcross.apply(torch.stack([mean, mean_sq]), group).unbind(0)
     return mean, mean_sq - mean.square()
+
+
+def _grad_moments_across(t: torch.Tensor, group) -> torch.Tensor:
+    """The backward's two per-channel means, averaged over the ranks: the
+    moments' share of the gradient (each rank's x moved every rank's mean
+    and variance)."""
+    return mean_across(t, group)
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -122,11 +158,12 @@ class _BatchNormTrain(torch.autograd.Function):
     B = 256 holds some 3.1e9 BN inputs)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float):
-        mean, var = batch_moments(x)
+    def forward(ctx, x, scale, bias, eps: float, group=None):
+        mean, var = batch_moments(x, group)
         inv = torch.rsqrt(var + eps)
         y = ((x.float() - mean) * inv * scale + bias).to(x.dtype)
         ctx.save_for_backward(x, mean, inv, scale)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -139,10 +176,13 @@ class _BatchNormTrain(torch.autograd.Function):
         gx = None
         if ctx.needs_input_grad[0]:
             gxhat = g * scale
-            gx = ((gxhat - gxhat.mean(dim=dims) - xhat * (gxhat * xhat).mean(dim=dims)) * inv).to(x.dtype)
+            m1, m2 = gxhat.mean(dim=dims), (gxhat * xhat).mean(dim=dims)
+            if ctx.group is not None:
+                m1, m2 = _grad_moments_across(torch.stack([m1, m2]), ctx.group).unbind(0)
+            gx = ((gxhat - m1 - xhat * m2) * inv).to(x.dtype)
         gscale = (g * xhat).sum(dim=dims) if ctx.needs_input_grad[1] else None
         gbias = g.sum(dim=dims) if ctx.needs_input_grad[2] else None
-        return gx, gscale, gbias, None
+        return gx, gscale, gbias, None, None
 
 
 def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -323,45 +363,49 @@ class ModifiedResNet(nn.Module):
 BnStats = Dict[str, Dict[str, torch.Tensor]]
 
 
-def _batch_norm_into(stats: Dict, prefix: str):
-    """A ``norm`` that normalises with the batch moments and records
-    ``(mean, var, n)`` under ``prefix + site``."""
+def _batch_norm_into(stats: Dict, prefix: str, group=None):
+    """A ``norm`` that normalises with the batch moments (over ``group``'s
+    ranks: SyncBN) and records ``(mean, var, n)`` under ``prefix + site``,
+    ``n`` the element count over the ranks."""
+    ranks = 1 if group is None else dist.get_world_size(group)
 
     def norm(site: str, bn: BatchNorm, y: torch.Tensor) -> torch.Tensor:
-        out, mean, var = _BatchNormTrain.apply(y, bn.weight, bn.bias, bn.eps)
-        stats[prefix + site] = (mean, var, float(y.shape[0] * y.shape[1] * y.shape[2]))
+        out, mean, var = _BatchNormTrain.apply(y, bn.weight, bn.bias, bn.eps, group)
+        stats[prefix + site] = (mean, var, float(y.shape[0] * y.shape[1] * y.shape[2]) * ranks)
         return out
 
     return norm
 
 
-def _block_train(block: Bottleneck, x: torch.Tensor, counts: List[float]):
+def _block_train(block: Bottleneck, x: torch.Tensor, counts: List[float], group=None):
     """One bottleneck on batch moments: (its output, its sites' means, their
     variances); the element counts go to ``counts`` (plain floats, the same
     on a recompute)."""
     stats: Dict = {}
-    out = bottleneck(block, x, _batch_norm_into(stats, ""))
+    out = bottleneck(block, x, _batch_norm_into(stats, "", group))
     counts[:] = [n for _, _, n in stats.values()]
     return out, tuple(m for m, _, _ in stats.values()), tuple(v for _, v, _ in stats.values())
 
 
-def resnet_encoder_train(visual: ModifiedResNet, images: torch.Tensor) -> Tuple[torch.Tensor, BnStats]:
-    """The training forward: every BN site on its batch moments. Returns
+def resnet_encoder_train(visual: ModifiedResNet, images: torch.Tensor, group=None) -> Tuple[torch.Tensor, BnStats]:
+    """The training forward: every BN site on its batch moments, taken over
+    ``group``'s ranks when one is given (SyncBN). Returns
     ``(features, bn_stats)``, ``bn_stats[site] = {"mean", "var", "n"}`` for
     every BN site by key prefix (``"bn1"``, ``"layer1.0.downsample.1"``,
-    ...; ``n`` the element count of the site's input, a float) for
-    :func:`apply_bn_updates`. With ``cfg.remat`` and autograd recording,
-    each bottleneck is rematerialised."""
+    ...; ``n`` the element count of the site's input over the ranks, a
+    float) for :func:`apply_bn_updates`. With ``cfg.remat`` and autograd
+    recording, each bottleneck is rematerialised (its recompute repeats
+    the moments' all-reduce, on every rank alike)."""
     stats: Dict = {}
-    x = visual.stem(images.to(compute_dtype(visual.cfg.compute_dtype)), _batch_norm_into(stats, ""))
+    x = visual.stem(images.to(compute_dtype(visual.cfg.compute_dtype)), _batch_norm_into(stats, "", group))
     remat = visual.cfg.remat and torch.is_grad_enabled()
     for prefix, blk in visual.blocks():
         counts: List[float] = []
         if remat:  # the blocks compute nothing random
-            x, means, variances = checkpoint(_block_train, blk, x, counts, use_reentrant=False,
+            x, means, variances = checkpoint(_block_train, blk, x, counts, group, use_reentrant=False,
                                              preserve_rng_state=False)
         else:
-            x, means, variances = _block_train(blk, x, counts)
+            x, means, variances = _block_train(blk, x, counts, group)
         sites = ["bn1", "bn2", "bn3"] + (["downsample.1"] if blk.downsample is not None else [])
         for site, m, v, n in zip(sites, means, variances, counts):
             stats[f"{prefix}.{site}"] = (m, v, n)

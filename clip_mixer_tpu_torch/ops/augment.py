@@ -53,12 +53,16 @@ def draw_crops(seed: int, step: int, batch: int, height: int, width: int, out_si
     return oy, ox, flip
 
 
-def maybe_augment(tcfg, cfg, step: int, images_u8: torch.Tensor) -> torch.Tensor:
+def maybe_augment(tcfg, cfg, step: int, images_u8: torch.Tensor, rank: int = 0, world: int = 1) -> torch.Tensor:
     """The train step's augmentation hook: a no-op unless ``tcfg.augment``;
     otherwise crops to the model's resolution and flips, keyed on
-    (``tcfg.seed ^ 0x5EED``, ``step``)."""
+    (``tcfg.seed ^ 0x5EED``, ``step``). Under data parallelism ``images_u8``
+    is rank ``rank``'s rows of a global batch over ``world`` ranks: the
+    draws are for the global batch, as JAX draws per row of the global
+    array, and this rank crops with its rows of them, so a run crops alike
+    whatever its number of ranks."""
     if not tcfg.augment:
         return images_u8
     B, H, W, _ = images_u8.shape
-    crops = draw_crops(tcfg.seed ^ 0x5EED, step, B, H, W, cfg.image_resolution)
-    return crop_flip(images_u8, cfg.image_resolution, *crops)
+    crops = draw_crops(tcfg.seed ^ 0x5EED, step, B * world, H, W, cfg.image_resolution)
+    return crop_flip(images_u8, cfg.image_resolution, *(c[rank * B:(rank + 1) * B] for c in crops))

@@ -1,1 +1,2 @@
-"""The train step of the port (one device; the multi-device steps wait for Slice F)."""
+"""The parallel layer of the port: the process group, the data-parallel mesh and the train step
+(FSDP, tensor parallelism and pipeline stages wait for ROADMAP.md item 16)."""

@@ -1,13 +1,25 @@
-"""The single-device train step: forward, contrastive loss, AdamW, clamp, EMA.
+"""The train step, on one device or data-parallel: forward, contrastive loss, AdamW, clamp, EMA.
 
-Counterpart of ``clip_mixer_tpu/parallel/train_step.py`` on one device.
-A step runs, in order:
+Counterpart of ``clip_mixer_tpu/parallel/train_step.py``. With ``group``
+(a process group, the data axis of ``parallel/mesh.py``), each rank holds a
+replica of the model and its rows of the global batch, as JAX's step under
+``shard_map`` does. A step runs, in order:
 
-1. the augmentation hook (``TrainConfig.augment``), then the in-step
-   normalisation of the uint8 batch to the model's compute dtype;
-2. ``CLIP.forward_train``, the contrastive loss, and its backward; with
-   ``accum_steps > 1``, the two-pass GradCache instead
-   (:func:`two_pass_accum_grads`);
+1. the augmentation hook (``TrainConfig.augment``; the crops are drawn for
+   the global batch and each rank takes its rows of the draw), then the
+   in-step normalisation of the uint8 batch to the model's compute dtype;
+2. ``CLIP.forward_train`` (SyncBN over the group for a ResNet tower), the
+   contrastive loss over the global batch (``ops/losses.py``), and its
+   backward; with ``accum_steps > 1``, the two-pass GradCache instead
+   (:func:`two_pass_accum_grads`), whose loss and cotangents are those of
+   the gathered global features;
+2b. across a group, the gradients and the loss averaged over the ranks
+   (:func:`average_gradients`: one flat bucket, one all-reduce), JAX's
+   ``pmean``. This is an explicit collective, not
+   ``DistributedDataParallel``: DDP's module hooks would fight the
+   two-pass GradCache, :func:`freeze_subtree`'s toggling of
+   ``requires_grad`` and the fused-block route, which reads a block's
+   parameters without calling the block;
 3. the global gradient norm, taken before the clip;
 4. the optimiser update (clip, AdamW);
 5. the ``logit_scale`` clamp to ``TrainConfig.logit_scale_max``, after the
@@ -25,12 +37,14 @@ Its parts run inside ``torch.profiler.record_function`` ranges
 (``train_step/forward``, ``/backward`` or ``/gradcache``, ``/update``),
 which a profiler reads (``scripts/torch_train_profile.py``).
 
+Steps 3-6 run alike on every rank, on the averaged gradients, so the
+replicas stay bit-identical.
+
 The model is ``torch`` state, so the step updates ``TrainState`` in place
 and returns it with the metrics (0-d tensors on the model's device; nothing
 in the step waits for the device). The step runs on the model's device: on
-the card the kernel routes launch their kernels or raise. The multi-device
-steps (DDP over NCCL, FSDP, pipeline) wait for the parallel layer (ROADMAP.md,
-Slice F).
+the card the kernel routes launch their kernels or raise. FSDP and pipeline
+stages wait for their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -40,14 +54,16 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from clip_mixer_tpu_torch.config import CLIPConfig, TrainConfig
 from clip_mixer_tpu_torch.device import compute_dtype
 from clip_mixer_tpu_torch.models.resnet import apply_bn_updates
 from clip_mixer_tpu_torch.ops.augment import maybe_augment
-from clip_mixer_tpu_torch.ops.losses import contrastive_loss, loss_param_keys
+from clip_mixer_tpu_torch.ops.losses import contrastive_loss, gather_features, loss_param_keys
 from clip_mixer_tpu_torch.ops.preprocess import normalize_images
+from clip_mixer_tpu_torch.parallel.dist import world
 from clip_mixer_tpu_torch.train.optimizer import OptState, Optimizer, ema_sources, tower_of
 
 
@@ -127,16 +143,36 @@ def two_pass_accum_grads(model, accum_steps: int, get_chunk, micro_feats: Callab
     return loss.detach()
 
 
+def average_gradients(params, loss: torch.Tensor, group) -> torch.Tensor:
+    """Average every parameter's ``.grad`` and ``loss`` over ``group``'s
+    ranks, in place, in one all-reduce of one flat f32 bucket; returns the
+    averaged loss. Parameters without a gradient (a frozen tower's, on
+    every rank alike) are left out."""
+    grads = [p.grad for p in params.values() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[offset].clone()
+
+
 def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, grad_through_gather: bool = False,
-                    chunk_size: Optional[int] = None, accum_steps: int = 1):
+                    chunk_size: Optional[int] = None, accum_steps: int = 1, group=None):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     batch: {"images": uint8 [B, H, W, 3], "texts": int [B, context_length]},
-    tensors or numpy arrays, moved to the model's device. Metrics: ``loss``,
-    ``grad_norm`` (before the clip), ``logit_scale`` (its exp) and, for a
-    model with one, ``logit_bias``. ``cfg`` is the model's configuration
-    (the compute dtype and the resolution augmentation crops to); the
-    fused-block route (``route_towers``) is the model's, not the config's.
+    tensors or numpy arrays, moved to the model's device; across a
+    ``group`` (data parallelism), this rank's rows of the global batch
+    (``parallel/mesh.py::shard_batch``), every rank holding as many and the
+    same replica (``mesh.replicate``). Metrics: ``loss`` (averaged over
+    the ranks), ``grad_norm`` (before the clip, of the averaged gradients),
+    ``logit_scale`` (its exp) and, for a model with one, ``logit_bias``.
+    ``cfg`` is the model's configuration (the compute dtype and the
+    resolution augmentation crops to); the fused-block route
+    (``route_towers``) is the model's, not the config's.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -149,8 +185,10 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
     keys = loss_param_keys(tcfg.loss)
     bn_eval = tcfg.freeze == "visual"
 
+    rank, n_ranks = world(group)
+
     def loss_of(img, txt, scale, bias):
-        return contrastive_loss(tcfg.loss, img, txt, scale, logit_bias=bias,
+        return contrastive_loss(tcfg.loss, img, txt, scale, logit_bias=bias, group=group,
                                 grad_through_gather=grad_through_gather, chunk_size=chunk_size)
 
     def loss_and_grads(model, images_u8, texts):
@@ -158,7 +196,7 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
         if accum_steps == 1:
             with record_function("train_step/forward"):
                 img, txt, scale, bn_stats = model.forward_train(normalize_images(images_u8, dtype), texts,
-                                                                bn_eval=bn_eval)
+                                                                bn_eval=bn_eval, group=group)
                 loss = loss_of(img, txt, scale, getattr(model, "logit_bias", None))
             with record_function("train_step/backward"):
                 loss.backward()
@@ -180,12 +218,15 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
         dev = model.logit_scale.device
         images = torch.as_tensor(batch["images"]).to(dev, non_blocking=True)
         texts = torch.as_tensor(batch["texts"]).to(dev, non_blocking=True)
-        images = maybe_augment(tcfg, cfg, state.step, images)
+        images = maybe_augment(tcfg, cfg, state.step, images, rank, n_ranks)
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         with freeze_subtree(model, tcfg.freeze):
             loss, bn_stats = loss_and_grads(model, images, texts)
+        if group is not None:
+            with record_function("train_step/all_reduce"):
+                loss = average_gradients(params, loss, group)
         with record_function("train_step/update"):
             grads = {n: p.grad for n, p in params.items()}
             grad_norm = optimizer.update(params, grads, state.opt_state)
@@ -204,15 +245,20 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
     return step
 
 
-def make_eval_forward(cfg: CLIPConfig):
+def make_eval_forward(cfg: CLIPConfig, group=None):
     """(model, uint8 images, texts) -> (image features, text features,
-    exp(logit_scale)), normalising in the step, without autograd."""
+    exp(logit_scale)), normalising in the step, without autograd. Across a
+    ``group`` each rank encodes its rows of the batch (JAX's batch sharded
+    over the data axis); the features come back gathered, in rank order."""
     dtype = compute_dtype(cfg.compute_dtype)
 
     @torch.no_grad()
     def fwd(model, images_u8, texts):
         dev = model.logit_scale.device
         images = normalize_images(torch.as_tensor(images_u8).to(dev), dtype)
-        return model(images, torch.as_tensor(texts).to(dev))
+        img, txt, scale = model(images, torch.as_tensor(texts).to(dev))
+        if group is None:
+            return img, txt, scale
+        return gather_features(img, group, False), gather_features(txt, group, False), scale
 
     return fwd

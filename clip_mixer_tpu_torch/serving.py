@@ -1,9 +1,11 @@
 """Inference serving: bucketed encoders, micro-batching and HTTP endpoints.
 
-Counterpart of the single-device part of ``clip_mixer_tpu/serving.py``:
+Counterpart of ``clip_mixer_tpu/serving.py``:
 
 * :class:`InferenceEngine` pads each request batch with zeros to a batch
-  bucket (8, 32, 128 by default) and runs the model's encoders on its device,
+  bucket (8, 32, 128 by default) and runs the model's encoders on its device
+  or, given ``devices``, on one replica per device (each padded batch split
+  into equal chunks, one per replica),
   in float or, after :meth:`InferenceEngine.enable_int8`, through the
   calibrated W8A8 towers of ``ops/quant.py``; it holds a zero-shot
   classifier head and a text-to-image retrieval index, on the host or, from
@@ -23,14 +25,15 @@ Counterpart of the single-device part of ``clip_mixer_tpu/serving.py``:
   builds its server and engine without serving, and
   ``clip_mixer_tpu_torch/client.py`` is its client.
 
-Multi-device engines (``--all-devices``, ROADMAP.md item 16) are not ported
-yet: the CLI refuses them.
+``--all-devices`` serves one engine over every visible card
+(:func:`local_mesh`), as the JAX CLI serves one over every local chip.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import copy
 import io
 import json
 import os
@@ -47,7 +50,7 @@ import torch
 
 from clip_mixer_tpu_torch.api import load
 from clip_mixer_tpu_torch.config import CLIPConfig
-from clip_mixer_tpu_torch.device import compute_dtype
+from clip_mixer_tpu_torch.device import compute_dtype, resolve_device
 from clip_mixer_tpu_torch.models.clip import CLIP, l2_normalize
 from clip_mixer_tpu_torch.ops import quant_io
 from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess, normalize_images, preprocess_pil
@@ -105,6 +108,55 @@ def encoder_fns(cfg: CLIPConfig, int8: bool = False, input_hw=None):
     return image_fn, text_fn
 
 
+def local_mesh() -> Optional[List[torch.device]]:
+    """The ``--all-devices`` serving layout: every visible card, or None on
+    a host with fewer than two. The one constructor of the serving CLI and
+    ``scripts/torch_embed_dataset.py``: a bank's features equal the
+    served ones only when both run on the same layout."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else None
+
+
+def visible_devices(device=None) -> List[torch.device]:
+    """Every device of ``device``'s type this process sees (the cards, or
+    the one CPU): what the export scripts' ``--all-devices`` records."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def replica(model: CLIP, device: torch.device) -> CLIP:
+    """``model`` itself on its own device, else a copy of it (its tower
+    route included) on ``device``."""
+    if torch.device(model.device) == torch.device(device):
+        return model
+    return copy.deepcopy(model).to(device)
+
+
+def split_over(fns: Sequence[Callable], devices: Sequence[torch.device]) -> Callable:
+    """A replicated path's ``fn(modules, batch)``: ``batch`` (a multiple of
+    ``len(devices)`` rows) in equal chunks, chunk i through ``fns[i]`` on
+    ``modules[i]`` on ``devices[i]``; every chunk is launched before any
+    result is read, and the features come back in order on the first
+    device."""
+
+    def fn(modules, batch):
+        chunks = batch.chunk(len(devices))
+        outs = [f(m, c.to(d, non_blocking=True)) for f, m, c, d in zip(fns, modules, chunks, devices)]
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return fn
+
+
 def softmax_probs(logits: np.ndarray) -> np.ndarray:
     """Row-stable softmax."""
     e = np.exp(logits - logits.max(-1, keepdims=True))
@@ -146,21 +198,38 @@ class InferenceEngine:
     device; None = images arrive model-sized. Each tower's path is an
     ``(fn, module)`` pair, swapped in one attribute write (so a live server's
     threads never see a fn and a module that do not belong together);
-    ``path_kinds`` says which numeric path each tower serves."""
+    ``path_kinds`` says which numeric path each tower serves.
+
+    ``devices``: serve on one replica of ``model`` per device (JAX's
+    ``mesh=``: parameters replicated, the batch split). The buckets are
+    rounded up to multiples of the device count; a path's module is then
+    the list of the replicas' modules and its fn splits each padded batch
+    over them (:func:`split_over`); a device bank's rows are split over the
+    devices too."""
 
     # Banks at or above this row count live on the device and their
     # similarity runs there; below it host numpy saves the round trip.
     DEVICE_BANK_MIN_ROWS = 16384
 
-    def __init__(self, model: CLIP, batch_buckets: Sequence[int] = (8, 32, 128), input_hw=None):
-        self.model = model.eval()
+    def __init__(self, model: CLIP, batch_buckets: Sequence[int] = (8, 32, 128), input_hw=None,
+                 devices: Optional[Sequence] = None):
+        self.devices = None if devices is None else [_indexed(d) for d in devices]
+        if self.devices is not None:
+            if not self.devices:
+                raise ValueError("devices= names no device")
+            n = len(self.devices)
+            batch_buckets = {-(-b // n) * n for b in batch_buckets}  # each bucket splits evenly
+            self.replicas = [replica(model, d).eval() for d in self.devices]
+        else:
+            self.replicas = [model.eval()]
+        self.model = self.replicas[0]
         self.cfg = model.cfg
-        self.device = model.device
+        self.device = self.model.device
         self.input_hw = None if input_hw is None else tuple(input_hw)
         self.buckets = sorted(batch_buckets)
         image_fn, text_fn = encoder_fns(self.cfg, input_hw=self.input_hw)
-        self._image_path = (image_fn, self.model)
-        self._text_path = (text_fn, self.model)
+        self._image_path = self.path([image_fn], self.replicas)
+        self._text_path = self.path([text_fn], self.replicas)
         self.path_kinds = {"image": "float", "text": "float"}
         self.frozen = False  # aot.load_servable: the paths run recorded programs
         self._classifier: Optional[np.ndarray] = None
@@ -168,6 +237,14 @@ class InferenceEngine:
         self._index = None  # (L2-normalised features [N, D], ids): numpy, or a tensor on the device
         self.__batcher: Optional[MicroBatcher] = None
         self._batcher_lock = threading.Lock()
+
+    def path(self, fns: Sequence[Callable], modules: Sequence) -> tuple:
+        """A tower's ``(fn, module)`` from one fn (or one a device) and one
+        module a replica: on one device the pair itself, else the split."""
+        if self.devices is None:
+            return fns[0], modules[0]
+        fns = list(fns) * len(self.devices) if len(fns) == 1 else list(fns)
+        return split_over(fns, self.devices), list(modules)
 
     @property
     def _image_batcher(self) -> "MicroBatcher":
@@ -228,12 +305,12 @@ class InferenceEngine:
             quant_io.save_calibration(save_calibration, cfg, image_scales=scales, text_scales=t_scales)
 
         image_fn_q, text_fn_q = encoder_fns(cfg, int8=True, input_hw=self.input_hw)
-        if scales is not None:
-            self._image_path = (image_fn_q, quantize(self.model, scales))  # one attribute write
+        if scales is not None:  # every replica quantised with the same scales
+            self._image_path = self.path([image_fn_q], [quantize(m, scales) for m in self.replicas])
             self.path_kinds["image"] = "int8"
             self.frozen = False  # live now, even on a load_servable engine
         if t_scales is not None:
-            self._text_path = (text_fn_q, t_quantize(self.model, t_scales))
+            self._text_path = self.path([text_fn_q], [t_quantize(m, t_scales) for m in self.replicas])
             self.path_kinds["text"] = "int8"
             self.frozen = False
 
@@ -257,7 +334,8 @@ class InferenceEngine:
             if take < b:
                 chunk = np.concatenate([chunk, np.zeros((b - take,) + arr.shape[1:], arr.dtype)])
             with torch.inference_mode():
-                feats = fn(module, torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device))
+                x = torch.from_numpy(np.ascontiguousarray(chunk))
+                feats = fn(module, x if self.devices is not None else x.to(self.device))  # split_over moves it
                 out.append(feats.float().cpu().numpy()[:take])
             i += take
         return np.concatenate(out)
@@ -285,7 +363,7 @@ class InferenceEngine:
             self._run_padded(self._image_path, np.zeros((b, ih, iw, 3), np.uint8))
             self._run_padded(self._text_path, np.zeros((b, ctx), np.int32))
         index = self._index
-        if index is not None and isinstance(index[0], torch.Tensor):
+        if index is not None and _on_device(index[0]):
             self._device_sims(np.zeros((self.buckets[-1], self.cfg.embed_dim), np.float32), index[0])
 
     def decode_and_preprocess(self, blobs: Sequence[bytes]) -> np.ndarray:
@@ -353,7 +431,10 @@ class InferenceEngine:
         here) with one id per row, in one attribute write.
 
         ``device``: keep the bank on the engine's device and take the
-        similarity there; None = from ``DEVICE_BANK_MIN_ROWS`` rows."""
+        similarity there; None = from ``DEVICE_BANK_MIN_ROWS`` rows. On a
+        multi-device engine the bank's rows are padded with zeros to a
+        multiple of the device count and split over the devices (a list of
+        shards); :meth:`retrieve` slices the similarities back to the true N."""
         feats = np.asarray(features, np.float32)
         if feats.ndim != 2 or feats.shape[0] != len(ids):
             raise ValueError(f"index shape {feats.shape} does not match {len(ids)} ids")
@@ -364,12 +445,22 @@ class InferenceEngine:
         feats = feats / np.maximum(np.linalg.norm(feats, axis=-1, keepdims=True), 1e-8)
         if device is None:
             device = feats.shape[0] >= self.DEVICE_BANK_MIN_ROWS
-        bank = torch.from_numpy(feats).to(self.device) if device else feats
+        if not device:
+            bank = feats
+        elif self.devices is None:
+            bank = torch.from_numpy(feats).to(self.device)
+        else:
+            n = len(self.devices)
+            pad = (-feats.shape[0]) % n
+            padded = np.concatenate([feats, np.zeros((pad, feats.shape[1]), np.float32)]) if pad else feats
+            bank = [torch.from_numpy(s).to(d) for s, d in zip(np.split(padded, n), self.devices)]
         self._index = (bank, list(ids))
 
-    def _device_sims(self, q: np.ndarray, bank: torch.Tensor) -> np.ndarray:
-        """[Q, D] queries against the device bank, the queries padded to the
-        engine's batch buckets; the [Q, N] similarities come back to the host."""
+    def _device_sims(self, q: np.ndarray, bank) -> np.ndarray:
+        """[Q, D] queries against the device bank (a tensor, or one shard a
+        device), the queries padded to the engine's batch buckets; the
+        [Q, N] similarities (N padded on a split bank) come back to the host."""
+        shards = bank if isinstance(bank, list) else [bank]
         out = []
         i, n = 0, q.shape[0]
         while i < n:
@@ -377,8 +468,9 @@ class InferenceEngine:
             chunk = np.zeros((self._bucket(take), q.shape[1]), np.float32)
             chunk[:take] = q[i : i + take]
             with torch.inference_mode():
-                sims = torch.matmul(torch.from_numpy(chunk).to(bank.device), bank.t())
-                out.append(sims[:take].cpu().numpy())
+                x = torch.from_numpy(chunk)
+                parts = [torch.matmul(x.to(s.device), s.t()) for s in shards]  # each device scans its shard
+                out.append(torch.cat([p.cpu() for p in parts], dim=1)[:take].numpy())
             i += take
         return np.concatenate(out)
 
@@ -427,8 +519,13 @@ class InferenceEngine:
             raise NotLoadedError("no index loaded; call load_index or index_images first")
         feats, ids = index  # one read
         q = self.encode_text(texts)
-        sims = self._device_sims(q, feats) if isinstance(feats, torch.Tensor) else q @ feats.T
+        sims = self._device_sims(q, feats)[:, :len(ids)] if _on_device(feats) else q @ feats.T
         return [[{"id": ids[i], "score": float(row[i])} for i in _topk(row, top_k)] for row in sims]
+
+
+def _on_device(bank) -> bool:
+    """Whether a bank lives on the device(s): a tensor, or a list of shards."""
+    return isinstance(bank, (torch.Tensor, list))
 
 
 class MicroBatcher:
@@ -554,6 +651,7 @@ def make_handler(engine: InferenceEngine, stats: Optional[ServerStats] = None):
                         "paths": dict(engine.path_kinds),
                         "frozen": engine.frozen,
                         "device": str(engine.device),
+                        "devices": len(engine.replicas),
                         "index_size": 0 if engine._index is None else len(engine._index[1]),
                     },
                 )
@@ -618,7 +716,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="preset, OpenAI name, torch .pt / .safetensors, Accelerate dir or port export dir")
     p.add_argument("--port", type=int, default=8000, help="0 binds a free port")
     p.add_argument("--classifier", default=None, help="'imagenet' or a file with one classname per line")
-    p.add_argument("--all-devices", action="store_true", help="not ported yet (ROADMAP.md item 16)")
+    p.add_argument("--all-devices", action="store_true",
+                   help="one engine over every visible card (serving.local_mesh); a no-op on a one-card host")
     p.add_argument("--int8", default=None, metavar="CALIB_NPZ",
                    help="serve the W8A8 path of the towers a calibration artifact holds "
                         "(scripts/torch_calibrate_int8.py)")
@@ -645,12 +744,11 @@ def build_server(argv=None):
     from clip_mixer_tpu_torch import aot
 
     args = parse_args(argv)
-    if args.all_devices:
-        raise SystemExit("--all-devices is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, "
-                         "Queue 1 item 16 (multi-GPU, Slice F)")
     frozen_dir = os.path.isfile(os.path.join(args.model, "servable", "manifest.json"))
     if frozen_dir and not args.no_frozen:
-        for flag, name in ((args.int8, "--int8"), (args.input_size, "--input-size")):
+        # load_servable rebuilds the recorded device layout itself
+        for flag, name in ((args.int8, "--int8"), (args.all_devices, "--all-devices"),
+                           (args.input_size, "--input-size")):
             if flag:
                 raise SystemExit(f"{name} would re-trace the encoders, discarding the recorded programs in "
                                  f"{args.model}; pass --no-frozen to serve the live model with it")
@@ -660,7 +758,8 @@ def build_server(argv=None):
         model, _, _ = load(args.model, device=args.device)
         if frozen_dir:  # the live model on the route its programs were recorded on
             aot.apply_route(model, aot.read_manifest(args.model).get("route", "plain"))
-        engine = InferenceEngine(model, input_hw=(args.input_size, args.input_size) if args.input_size else None)
+        engine = InferenceEngine(model, input_hw=(args.input_size, args.input_size) if args.input_size else None,
+                                 devices=local_mesh() if args.all_devices and model.device.type == "cuda" else None)
         if args.int8:
             engine.enable_int8(calibration=args.int8)
     if args.index:

@@ -18,6 +18,11 @@ reads), ``train_state.pt`` (``TrainState.step`` and every tensor of
 renamed into place, so an interrupted save is never the latest one; leftover
 ``.tmp`` directories are removed when a Checkpointer opens the directory.
 Saves are synchronous; :meth:`Checkpointer.wait` keeps the JAX call sites.
+
+Across processes every rank holds the same replica, so one writes: a
+Checkpointer opened with ``lead=False`` saves nothing and removes nothing
+(the trainer's other ranks, which wait at a barrier while the lead saves),
+and every rank restores the same files.
 """
 
 from __future__ import annotations
@@ -57,13 +62,15 @@ def _copy_into(live: Optional[Dict[str, torch.Tensor]], saved: Optional[Dict[str
 
 
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, lead: bool = True):
         require_local(directory, "checkpoint directory")
         self.directory = os.path.abspath(os.fspath(directory))
         self.max_to_keep = max_to_keep
+        self.lead = lead
         self.last_save_bytes = 0
         os.makedirs(self.directory, exist_ok=True)
-        self._cleanup_interrupted_saves()
+        if lead:
+            self._cleanup_interrupted_saves()
 
     def _cleanup_interrupted_saves(self) -> None:
         """Remove the ``<id>.tmp`` directories a killed save left behind:
@@ -79,7 +86,10 @@ class Checkpointer:
     def save(self, state, epoch: int, step: int, step_id: Optional[int] = None) -> None:
         """``step``: the batch index to resume from within ``epoch``;
         ``step_id``: the checkpoint's id, by default the state's step counter.
-        A save of an id that exists replaces it."""
+        A save of an id that exists replaces it; a Checkpointer that is not
+        the lead writes nothing."""
+        if not self.lead:
+            return
         if step_id is None:
             step_id = int(state.step)
         final = self._path(step_id)

@@ -1,6 +1,6 @@
-"""Trainer orchestration on one device: epochs, checkpoints, validation, metrics.
+"""Trainer orchestration: epochs, checkpoints, validation, metrics, on one device or data-parallel.
 
-Counterpart of ``clip_mixer_tpu/train/trainer.py`` in a single process. The
+Counterpart of ``clip_mixer_tpu/train/trainer.py``. The
 step is ``parallel/train_step.py``'s; the data come from a
 :class:`~clip_mixer_tpu_torch.data.pipeline.DataSource` through
 :func:`~clip_mixer_tpu_torch.data.pipeline.prefetch` (a host thread) and
@@ -22,8 +22,17 @@ and ``hang_after_steps`` drills; a validation cadence of its own; the
 throughput scalar at each checkpoint boundary; a profiler trace of
 ``profile_steps`` steady steps; the final save and the export.
 
-The multi-process parts (the agreed stop across processes, sharded states,
-FSDP, pipeline meshes) wait for Slice F (ROADMAP.md).
+Across processes (a process group initialised by ``parallel/dist.py``),
+each process trains one replica on its own card and its own share of the
+data, the step averaging the gradients over the mesh's data axis. Rank 0
+leads, as JAX's process 0 does: it alone writes the checkpoints, the
+metrics, the validators' results, the export and its frozen programs,
+while the others wait at a barrier, so no rank reads a half-written step;
+each rank writes its own heartbeat, ``heartbeat-{rank}``. A stop (SIGTERM
+to any rank) is agreed every ``preemption_sync_every_steps`` by an OR over
+the ranks, so every rank saves at the same step. Every rank restores the
+same checkpoint, so a resume is bit for bit. FSDP and pipeline meshes wait
+for their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -38,12 +47,15 @@ from collections import deque
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from clip_mixer_tpu_torch.api import save_pretrained
 from clip_mixer_tpu_torch.config import CLIPConfig, TrainConfig
 from clip_mixer_tpu_torch.data.pipeline import DataSource, device_prefetch, pinned, prefetch
 from clip_mixer_tpu_torch.device import DeviceLike, resolve_device
 from clip_mixer_tpu_torch.models.clip import CLIP
+from clip_mixer_tpu_torch.parallel.dist import any_across, barrier, rank_device, world
+from clip_mixer_tpu_torch.parallel.mesh import data_group, make_mesh, replicate
 from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
 from clip_mixer_tpu_torch.train.checkpoint import Checkpointer
 from clip_mixer_tpu_torch.train.metrics import MetricsWriter, require_local
@@ -68,10 +80,14 @@ def _pick_trace_start(step: int, n: int, cadences) -> int:
 
 class Trainer:
     """Trains ``cfg`` under ``tcfg`` on ``data``, writing to ``run_dir``:
-    ``checkpoints/``, ``runs/metrics.jsonl``, ``heartbeat-0``, ``profile/``
-    and, when done, ``export/``.
+    ``checkpoints/``, ``runs/metrics.jsonl``, ``heartbeat-{rank}``,
+    ``profile/`` and, when done, ``export/``.
 
-    ``device``: where the model trains, the card unless another is named.
+    ``device``: where the model trains, the card unless another is named
+    (under a process group, a bare ``cuda`` is this rank's card).
+    ``mesh``: the data-parallel layout (``parallel/mesh.py``); by default
+    every rank of an initialised process group, else one device. ``data``
+    yields this rank's rows of each global batch.
     ``model``: a :class:`CLIP` to train in place of one initialised from
     ``tcfg.seed`` (the JAX ``params=``). ``validators``: objects with
     ``validate(step, verbose=, params=)``, called every
@@ -94,18 +110,25 @@ class Trainer:
         model: Optional[CLIP] = None,
         verbose: bool = False,
         profile_steps: int = 0,
+        mesh=None,
     ):
         require_local(run_dir, "run_dir")
         if tcfg.fsdp:
-            raise ValueError("TrainConfig.fsdp is not ported yet (ROADMAP.md, Slice F)")
+            raise ValueError("TrainConfig.fsdp is not ported yet (ROADMAP.md, Queue 1 item 16a, FSDP2)")
         self.cfg, self.tcfg, self.data = cfg, tcfg, data
-        self.verbose = verbose
-        self.profile_steps = profile_steps
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(device=device)
+        self.mesh = mesh
+        self.group = data_group(mesh)
+        self.rank, self.world = world(self.group)
+        self.is_lead = self.rank == 0
+        self.verbose = verbose and self.is_lead
+        self.profile_steps = profile_steps if self.is_lead else 0  # the lead's trace
         self.run_dir = run_dir
         self._profile_dir = os.path.join(run_dir, "profile")
         self._profiler = None
         # liveness for a stall watchdog: its mtime advances every step
-        self._heartbeat_path = os.path.join(run_dir, "heartbeat-0")
+        self._heartbeat_path = os.path.join(run_dir, f"heartbeat-{self.rank}")
         self._beat_degraded = False
 
         steps_per_epoch = tcfg.steps_per_epoch or data.batches_per_epoch
@@ -116,9 +139,11 @@ class Trainer:
         self.optimizer = make_optimizer(tcfg, self.total_steps)
         self._schedule = self.optimizer.schedule
         self.step_fn = make_train_step(cfg, tcfg, self.optimizer, grad_through_gather, chunk_size,
-                                       accum_steps=tcfg.accum_steps)
-        self.writer = MetricsWriter(log_dir=os.path.join(run_dir, "runs"))
-        self.checkpointer = Checkpointer(os.path.join(run_dir, "checkpoints"), max_to_keep=tcfg.keep_checkpoints)
+                                       accum_steps=tcfg.accum_steps, group=self.group)
+        # the other ranks keep the history only
+        self.writer = MetricsWriter(log_dir=os.path.join(run_dir, "runs") if self.is_lead else None)
+        self.checkpointer = Checkpointer(os.path.join(run_dir, "checkpoints"), max_to_keep=tcfg.keep_checkpoints,
+                                         lead=self.is_lead)
         self.validators = list(validators)
         self.validate_every_steps = tcfg.validate_every_steps or tcfg.checkpoint_every_steps
         for v in self.validators:
@@ -126,11 +151,13 @@ class Trainer:
                 v.writer = self.writer
 
         if model is None:
-            self.device = resolve_device(device)
+            self.device = rank_device(device)
             model = CLIP(cfg, device=self.device, generator=torch.Generator().manual_seed(tcfg.seed))
         else:
             self.device = model.device if device is None else resolve_device(device)
             model = model.to(self.device)
+        # every replica starts from rank 0's weights (before the EMA copies them)
+        replicate(self.group, model)
         self.state = init_train_state(model, self.optimizer)
         self.timings = {"data_wait_s": [], "save_s": [], "save_bytes": [], "validate_s": [], "restore_s": None,
                         "export_s": None}
@@ -142,6 +169,11 @@ class Trainer:
             self.timings["restore_s"] = time.perf_counter() - t0
             if self.verbose:
                 print(f"Resuming from epoch {self.start_epoch}, batch {self.start_batch}")
+        # the step of the newest checkpoint, known alike on every rank (the
+        # disk is not: the lead may be renaming a save into place)
+        self._saved_step = self.checkpointer.latest_step()
+        if self.group is not None:
+            barrier(self.group)  # every rank has read the checkpoint before the lead may write one
 
     @property
     def global_step(self) -> int:
@@ -199,15 +231,21 @@ class Trainer:
             pass
 
     def _stop_agreed(self, stop_requested: threading.Event, step: int) -> bool:
-        """Whether to act on a pending stop at this step: at once, in one
-        process (the OR across processes waits for Slice F)."""
-        return stop_requested.is_set()
+        """Whether to act on a pending stop at this step. One process: at
+        once. Across processes: every ``preemption_sync_every_steps``, the
+        OR of the ranks' flags, a collective every rank runs at the same
+        step, so a True commits every rank to the same preemption save."""
+        if self.group is None:
+            return stop_requested.is_set()
+        if step % self.tcfg.preemption_sync_every_steps:
+            return False
+        return any_across(stop_requested.is_set(), self.group)
 
     def _preemption_exit(self, pending, epoch: int, batch_idx: int, step: int) -> None:
         """Save the completed step and leave; ``batch_idx`` already points
         at the next batch, as at a cadence save."""
         self._flush_metrics(pending)
-        if self.checkpointer.latest_step() != step:
+        if self._saved_step != step:
             self.save(epoch, batch_idx)
         self.checkpointer.wait()
         self.writer.flush()
@@ -267,7 +305,10 @@ class Trainer:
             source = self.data.iter_batches(epoch, start_batch)
             if cuda:
                 source = pinned(source)  # pinned in the prefetch thread
-            with contextlib.closing(prefetch(source, stop=stop_requested)) as host, \
+            # one process: a stop also ends a blocked data wait; across
+            # processes every rank must reach the agreed step, so it does not
+            local_stop = stop_requested if self.group is None else None
+            with contextlib.closing(prefetch(source, stop=local_stop)) as host, \
                     contextlib.closing(device_prefetch(host, self.device)) as on_device:
                 for batch in self._timed(on_device):
                     # the per-epoch cap before stepping: a resume from an
@@ -341,14 +382,14 @@ class Trainer:
                         self.validate(step)
                         self._beat()  # a long validation pass is not a stall
             self._flush_metrics(pending)
-            if stop_requested.is_set():
+            if local_stop is not None and stop_requested.is_set():
                 # the data wait was interrupted: save mid-epoch rather than
                 # start the next epoch's iterator
                 self._preemption_exit([], epoch, batch_idx, step)
                 return
             self.start_batch = 0
         # the final save, unless the cadence save holds this step already
-        if self.checkpointer.latest_step() != step:
+        if self._saved_step != step:
             self.save(tcfg.epochs, 0)
         self.checkpointer.wait()
         self.export()
@@ -382,8 +423,13 @@ class Trainer:
                 self.writer.add_scalar("Logit bias", m["logit_bias"], s)
 
     def save(self, epoch: int, batch_idx: int) -> None:
+        """The lead writes the checkpoint; every rank then waits at a
+        barrier, so none reads a half-written step."""
         t0 = time.perf_counter()
         self.checkpointer.save(self.state, epoch=epoch, step=batch_idx)
+        if self.group is not None:
+            barrier(self.group)
+        self._saved_step = self.state.step
         self.timings["save_s"].append(time.perf_counter() - t0)
         self.timings["save_bytes"].append(self.checkpointer.last_save_bytes)
 
@@ -397,11 +443,14 @@ class Trainer:
         feeds the exported weights."""
         path = path or os.path.join(self.run_dir, "export")
         t0 = time.perf_counter()
-        save_pretrained(self._host_params(), self.cfg, path)
-        if self.tcfg.freeze_serving:
-            from clip_mixer_tpu_torch.aot import freeze_programs
+        if self.is_lead:  # the replicas are alike: one writes, the others wait
+            save_pretrained(self._host_params(), self.cfg, path)
+            if self.tcfg.freeze_serving:
+                from clip_mixer_tpu_torch.aot import freeze_programs
 
-            freeze_programs(self.state.model, path)
+                freeze_programs(self.state.model, path)
+        if self.group is not None:
+            barrier(self.group)
         self.timings["export_s"] = time.perf_counter() - t0
         return path
 
@@ -416,15 +465,19 @@ class Trainer:
         return sd
 
     def validate(self, step: int) -> None:
-        """Run every validator on the host weights; each pass's seconds go
-        to ``timings["validate_s"]`` as ``(step, validator, s)``."""
+        """Run every validator on the host weights, on the lead (the other
+        ranks wait at a barrier); each pass's seconds go to
+        ``timings["validate_s"]`` as ``(step, validator, s)``."""
         if not self.validators:
             return
-        params = self._host_params()
-        for v in self.validators:
-            t0 = time.perf_counter()
-            v.validate(step, verbose=self.verbose, params=params)
-            s = time.perf_counter() - t0
-            self.timings["validate_s"].append((step, type(v).__name__, s))
-            if self.verbose:
-                print(f"validate step {step}: {type(v).__name__} {s:.3f} s", flush=True)
+        if self.is_lead:
+            params = self._host_params()
+            for v in self.validators:
+                t0 = time.perf_counter()
+                v.validate(step, verbose=self.verbose, params=params)
+                s = time.perf_counter() - t0
+                self.timings["validate_s"].append((step, type(v).__name__, s))
+                if self.verbose:
+                    print(f"validate step {step}: {type(v).__name__} {s:.3f} s", flush=True)
+        if self.group is not None:
+            barrier(self.group)

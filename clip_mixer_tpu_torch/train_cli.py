@@ -11,18 +11,27 @@ tar globs blend into a mixture; ``--cache-data`` serves ``--data`` from host
 RAM; else synthetic), the validators (the four remote ones unless
 ``--no-validators``, retrieval over ``--val-data`` always) and the
 :class:`~clip_mixer_tpu_torch.train.trainer.Trainer`, which writes to
-``outputs/<run-name>`` and exports to ``outputs/<run-name>/export``. One
-process is one host (``n_hosts`` 1) until the multi-process launch is ported.
+``outputs/<run-name>`` and exports to ``outputs/<run-name>/export``.
+
+Data-parallel runs start one process per card, told their rendezvous by
+``--coordinator HOST:PORT --num-processes N --process-id I`` or by
+``torchrun``'s environment (``parallel/dist.py``); NCCL joins them on the
+card, gloo with ``--device cpu``. Each process reads
+``--global-batch-size / N`` rows a step: its own shards of ``--data``
+(``n_hosts = N``, ``host_index = I``), or its rows of each synthetic global
+batch. Rank 0 writes the run's files.
 
 Flags whose machinery is not ported yet exit with a message naming the
 ROADMAP item. A non-finite loss exits with code 13, as the JAX launcher's
 ``EXIT_NONFINITE``: under bitwise resume that failure repeats, so a
 supervisor must not restart it.
 
-Example::
+Examples::
 
     python -m clip_mixer_tpu_torch.train_cli --synthetic --preset mixer-b32 \\
         --global-batch-size 256 --steps-per-epoch 50 --epochs 2 --run-name run1
+    torchrun --nproc-per-node 8 -m clip_mixer_tpu_torch.train_cli --synthetic \\
+        --global-batch-size 2048 --steps-per-epoch 50 --epochs 2 --run-name run8
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import sys
 import traceback
 
 import torch
+import torch.distributed as dist
 
 from clip_mixer_tpu_torch.api import load
 from clip_mixer_tpu_torch.config import PRESETS, SIGLIP_LOGIT_SCALE_MAX, TrainConfig
@@ -42,6 +52,7 @@ from clip_mixer_tpu_torch.data.pipeline import (
     CacheSource,
     FileListSource,
     MixtureSource,
+    RankRowsSource,
     SyntheticSource,
     TarShardSource,
     expand_shard_pattern,
@@ -55,18 +66,16 @@ from clip_mixer_tpu_torch.evals.validators import (
 )
 from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.ops.augment import source_size
+from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed, rank_device
 from clip_mixer_tpu_torch.train.trainer import Trainer
 
 EXIT_NONFINITE = 13  # clip_mixer_tpu/launch.py:169
 
 # flag -> the ROADMAP.md item that ports its machinery
 NOT_PORTED = {
-    "--fsdp": "Slice F (item 16, FSDP2)",
-    "--tensor-parallel": "Slice F (item 16, DTensor)",
-    "--pipeline-stages": "Slice F (item 16, GPipe)",
-    "--coordinator": "Slice F (item 16, multi-process launch)",
-    "--num-processes": "Slice F (item 16, multi-process launch)",
-    "--process-id": "Slice F (item 16, multi-process launch)",
+    "--fsdp": "Slice F (item 16a, FSDP2)",
+    "--tensor-parallel": "Slice F (item 16b, DTensor)",
+    "--pipeline-stages": "Slice F (item 16b, GPipe)",
 }
 
 
@@ -117,15 +126,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-validators", action="store_true")
     p.add_argument("--no-remat", action="store_true", help="disable gradient rematerialisation")
     p.add_argument("--remat-policy", default="none", choices=["none", "mlp_hidden", "all_hidden"])
+    p.add_argument("--fused-mlp", action="store_true",
+                   help="the Mixer towers' channel MLPs through the ln_mlp kernel (CLIPConfig.fused_mlp)")
     p.add_argument("--profile-steps", type=int, default=0,
                    help="trace this many steady steps to outputs/<run>/profile")
     p.add_argument("--crash-after-steps", type=int, default=None, help="fault injection: crash after N steps")
     p.add_argument("--hang-after-steps", type=int, default=None, help="fault injection: hang after N steps")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
-    p.add_argument("--coordinator", default=None, help="not ported yet")
-    p.add_argument("--num-processes", type=int, default=None, help="not ported yet")
-    p.add_argument("--process-id", type=int, default=None, help="not ported yet")
+    p.add_argument("--coordinator", default=None, help="host:port (or a tcp:// / file:// URL) of the rendezvous")
+    p.add_argument("--num-processes", type=int, default=None, help="processes in the run (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None, help="this process's rank (with --coordinator)")
     return p.parse_args(argv)
 
 
@@ -135,15 +146,18 @@ def refuse_unported(args: argparse.Namespace) -> None:
         "--fsdp": args.fsdp,
         "--tensor-parallel": args.tensor_parallel > 1,
         "--pipeline-stages": args.pipeline_stages > 1,
-        "--coordinator": args.coordinator is not None,
-        "--num-processes": args.num_processes is not None,
-        "--process-id": args.process_id is not None,
     }
     for flag, on in given.items():
         if on:
             raise SystemExit(f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, {NOT_PORTED[flag]}")
     if args.cache_data is not None and (args.synthetic or args.data is None):
         raise SystemExit("--cache-data needs --data (synthetic data is already RAM-speed)")
+    launch = {"--coordinator": args.coordinator, "--num-processes": args.num_processes,
+              "--process-id": args.process_id}
+    given = [f for f, v in launch.items() if v is not None]
+    if given and len(given) < len(launch):
+        raise SystemExit(f"{', '.join(given)} without {', '.join(f for f in launch if f not in given)}: "
+                         "an explicit rendezvous needs --coordinator, --num-processes and --process-id")
 
 
 def parse_data_spec(spec):
@@ -185,13 +199,28 @@ def build_single_source(pattern, caption_from="txt", **source_kwargs):
     return TarShardSource(shards, **source_kwargs)
 
 
-def build_data(args, cfg, image_size):
-    """The training source ``--data`` / ``--cache-data`` / ``--synthetic`` ask for."""
+def per_host_batch(global_batch: int, n_hosts: int) -> int:
+    """The rows each process reads a step; an indivisible global batch
+    exits (the batch trained would not be the one configured)."""
+    if global_batch % n_hosts:
+        raise SystemExit(f"--global-batch-size {global_batch} is not divisible by {n_hosts} processes: the "
+                         "actual batch would silently differ from the configured one")
+    return global_batch // n_hosts
+
+
+def build_data(args, cfg, image_size, n_hosts=1, host_index=0):
+    """The training source ``--data`` / ``--cache-data`` / ``--synthetic`` ask
+    for, for process ``host_index`` of ``n_hosts``: its shards of ``--data``,
+    or its rows of each synthetic global batch (so a run trains on the same
+    global batches whatever its number of processes)."""
+    batch = per_host_batch(args.global_batch_size, n_hosts)
     if args.synthetic or args.data is None:
-        return SyntheticSource(batch_size=args.global_batch_size, image_size=image_size,
+        data = SyntheticSource(batch_size=args.global_batch_size, image_size=image_size,
                                n_batches=args.steps_per_epoch or 100, context_length=cfg.context_length)
-    source_kwargs = dict(batch_size=args.global_batch_size, image_size=image_size,
-                         context_length=cfg.context_length, shuffle_buffer=args.shuffle_buffer, on_decode_error=args.on_decode_error, seed=args.seed)
+        return data if n_hosts == 1 else RankRowsSource(data, n_hosts, host_index)
+    source_kwargs = dict(batch_size=batch, image_size=image_size, context_length=cfg.context_length,
+                         n_hosts=n_hosts, host_index=host_index, shuffle_buffer=args.shuffle_buffer,
+                         on_decode_error=args.on_decode_error, seed=args.seed)
     if len(args.data) == 1:
         data = build_single_source(parse_data_spec(args.data[0])[0], args.caption_from, **source_kwargs)
     else:
@@ -259,12 +288,27 @@ def init_model(path: str, cfg, seed: int, device):
 def main(argv=None) -> None:
     args = parse_args(argv)
     refuse_unported(args)
-    cfg = PRESETS[args.preset].replace(remat=not args.no_remat, remat_policy=args.remat_policy)
+    launched = not dist.is_initialized() and maybe_initialize_distributed(
+        args.device, verbose=args.verbose, coordinator=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id)
+    try:
+        run(args)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def run(args: argparse.Namespace) -> None:
+    """One process's run, under a process group when one is up."""
+    n_hosts, host = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
+    device = rank_device(args.device) if dist.is_initialized() else args.device
+    cfg = PRESETS[args.preset].replace(remat=not args.no_remat, remat_policy=args.remat_policy,
+                                       fused_mlp=args.fused_mlp)
     if args.loss == "siglip":
         cfg = cfg.for_siglip()
     model = None
     if args.init_from:
-        model, cfg = init_model(args.init_from, cfg, args.seed, args.device)
+        model, cfg = init_model(args.init_from, cfg, args.seed, device)
     tcfg = TrainConfig(
         seed=args.seed,
         logit_scale_max=SIGLIP_LOGIT_SCALE_MAX if args.loss == "siglip" else TrainConfig.logit_scale_max,
@@ -288,15 +332,15 @@ def main(argv=None) -> None:
     )
     # with augmentation the source is larger and the step crops it back
     source_res = source_size(cfg.image_resolution) if args.augment else cfg.image_resolution
-    data = build_data(args, cfg, source_res)
+    data = build_data(args, cfg, source_res, n_hosts, host)
     trainer = Trainer(
         cfg, tcfg, data,
         run_dir=os.path.join("outputs", args.run_name),
-        device=args.device,
+        device=device,
         grad_through_gather=args.grad_through_gather,
         chunk_size=args.chunk_size,
         model=model,
-        validators=build_validators(args, cfg, args.device),
+        validators=build_validators(args, cfg, device),
         verbose=args.verbose,
         profile_steps=args.profile_steps,
     )

@@ -113,6 +113,8 @@ def main(argv=None):
     p.add_argument("--input-size", type=int, default=None, metavar="N",
                    help="take NxN sources and resize them on the device (as a server run with the "
                         "same --input-size, for the same features)")
+    p.add_argument("--all-devices", action="store_true",
+                   help="encode over every visible card (serving.local_mesh, the serving --all-devices layout)")
     p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
     args = p.parse_args(argv)
 
@@ -121,11 +123,12 @@ def main(argv=None):
         p.error(f"--data matched no shards: {args.data}")
 
     from clip_mixer_tpu_torch.api import load
-    from clip_mixer_tpu_torch.serving import InferenceEngine
+    from clip_mixer_tpu_torch.serving import InferenceEngine, local_mesh
 
     model, _, _ = load(args.model, device=args.device)
     input_hw = (args.input_size, args.input_size) if args.input_size else None
-    engine = InferenceEngine(model, batch_buckets=(args.batch,), input_hw=input_hw)
+    devices = local_mesh() if args.all_devices and model.device.type == "cuda" else None
+    engine = InferenceEngine(model, batch_buckets=(args.batch,), input_hw=input_hw, devices=devices)
     if args.int8:
         engine.enable_int8(calibration=args.int8)
     bank, ids, skipped, meta = embed(engine, shards, batch=args.batch, limit=args.limit, source=args.model)

@@ -33,19 +33,29 @@ def main(argv=None):
                    help="freeze the calibrated W8A8 encoders (the artifact must hold both towers)")
     p.add_argument("--platforms", default=None,
                    help="comma-separated device types; only the exporting device's type is taken")
-    p.add_argument("--all-devices", action="store_true", help="not ported yet (ROADMAP.md item 16)")
+    p.add_argument("--all-devices", action="store_true",
+                   help="record the programs for an engine over every visible device of --device's type "
+                        "(the serving --all-devices layout); loading then needs that many")
     p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
     args = p.parse_args(argv)
-    if args.all_devices:
-        raise SystemExit("--all-devices is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, Queue 1 item 16")
+    if args.all_devices and args.platforms:
+        raise SystemExit("--all-devices records the layout from THIS host's visible devices; combining it with "
+                         "--platforms would freeze the build host's device count, not the serving host's")
 
     from clip_mixer_tpu_torch import aot
     from clip_mixer_tpu_torch.api import load
+    from clip_mixer_tpu_torch.serving import visible_devices
 
     model, _, _ = load(args.model, device=args.device)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     platforms = None if args.platforms is None else tuple(args.platforms.split(","))
-    aot.export_servable(model, args.out, batch_buckets=buckets, int8_calibration=args.int8, platforms=platforms)
+    mesh = None
+    if args.all_devices:
+        mesh = visible_devices(model.device)
+        if len(mesh) == 1:
+            print("warning: --all-devices on a 1-device host records a 1-device mesh")
+    aot.export_servable(model, args.out, batch_buckets=buckets, int8_calibration=args.int8, platforms=platforms,
+                        mesh=mesh)
     kind = "int8 W8A8" if args.int8 else "float"
     print(f"froze {kind} serving programs ({aot.serving_route(model)} route) for buckets "
           f"{sorted(set(buckets))} -> {args.out}")

@@ -111,12 +111,15 @@ def main(argv=None):
     p.add_argument("--max-flip-ratio", type=float, default=2.5)
     p.add_argument("--platforms", default=None,
                    help="comma-separated device types; only the serving device's own type is taken")
-    p.add_argument("--all-devices", action="store_true", help="not ported yet (ROADMAP.md item 16)")
+    p.add_argument("--all-devices", action="store_true",
+                   help="record the programs for an engine over every visible device of --device's type "
+                        "(the serving --all-devices layout); loading then needs that many")
     p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
     args = p.parse_args(argv)
 
-    if args.all_devices:
-        raise SystemExit("--all-devices is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, Queue 1 item 16")
+    if args.all_devices and args.platforms:
+        raise SystemExit("--all-devices records the layout from THIS host's visible devices; combining it with "
+                         "--platforms would freeze the build host's device count, not the serving host's")
     if args.verify:
         verify(args.out, device=args.device)
         return
@@ -127,11 +130,17 @@ def main(argv=None):
 
     from clip_mixer_tpu_torch import aot
     from clip_mixer_tpu_torch.api import load
+    from clip_mixer_tpu_torch.serving import visible_devices
 
     model, cfg, _ = load(args.model, device=args.device)
     platforms = None if args.platforms is None else tuple(args.platforms.split(","))
+    mesh = None
+    if args.all_devices:
+        mesh = visible_devices(model.device)
+        if len(mesh) == 1:
+            print("warning: --all-devices on a 1-device host records a 1-device mesh")
     try:
-        aot.check_target(model, platforms)  # before calibration, which takes the longest
+        aot.check_target(model, platforms, mesh)  # before calibration, which takes the longest
     except ValueError as e:
         raise SystemExit(str(e)) from None
     out = Path(args.out)
@@ -155,7 +164,8 @@ def main(argv=None):
 
     # 3. the checkpoint and the frozen programs
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    aot.export_servable(model, str(out), batch_buckets=buckets, int8_calibration=calib_path, platforms=platforms)
+    aot.export_servable(model, str(out), batch_buckets=buckets, int8_calibration=calib_path, platforms=platforms,
+                        mesh=mesh)
 
     # 4. the release manifest, its buckets and device type read back from the recorded one
     srv = aot.read_manifest(str(out))
@@ -166,7 +176,7 @@ def main(argv=None):
         "buckets": srv["buckets"],
         "platforms": srv["platforms"],
         "route": srv["route"],
-        "mesh_devices": None,
+        "mesh_devices": None if mesh is None else len(mesh),
         "calibration_samples": None if args.no_int8 else args.n,
         "torch_version": torch.__version__,
     }

@@ -303,14 +303,15 @@ def test_manifest_versioning(exports, tmp_path):
 
 
 def test_platforms_and_mesh(jax_params, tmp_path):
-    """platforms= takes only the exporting device's type; mesh= names item
-    16; a device type the programs were not recorded for is refused at
-    load unless check_platform=False."""
+    """platforms= takes only the exporting device's type; mesh= only
+    devices of that type (tests/test_torch_port_mesh.py runs the mesh
+    programs); a device type the programs were not recorded for is refused
+    at load unless check_platform=False."""
     model = _model(jax_params)
     with pytest.raises(ValueError, match="recorded on the exporting process's device"):
         aot.export_servable(model, str(tmp_path / "x"), batch_buckets=(2,), platforms=("cuda",))
-    with pytest.raises(ValueError, match="item 16"):
-        aot.export_servable(model, str(tmp_path / "y"), batch_buckets=(2,), mesh=object())
+    with pytest.raises(ValueError, match="mesh= must list devices of the model's type"):
+        aot.export_servable(model, str(tmp_path / "y"), batch_buckets=(2,), mesh=["cpu", "cuda"])
     assert not (tmp_path / "x").exists() and not (tmp_path / "y").exists()
     out = str(tmp_path / "cpu")
     aot.export_servable(model, out, batch_buckets=(2,), platforms=("cpu",))
@@ -373,6 +374,10 @@ def test_export_cli(jax_params, tmp_path):
     assert aot.read_manifest(out)["route"] == "fused_mlp" and aot.serving_route(eng.model) == "fused_mlp"
     feats = eng.encode_text(["hello world"])
     assert feats.shape == (1, CFG["embed_dim"]) and np.all(np.isfinite(feats))
-    with pytest.raises(SystemExit, match="item 16"):
-        cli.main(["--model", src, "--out", str(tmp_path / "x"), "--all-devices", "--device", "cpu"])
+    # --all-devices records the layout of the devices this host sees: the one CPU
+    cli.main(["--model", src, "--out", str(tmp_path / "x"), "--buckets", "2", "--all-devices", "--device", "cpu"])
+    assert aot.read_manifest(str(tmp_path / "x"))["mesh"] == {"axis_names": ["data"], "shape": [1]}
+    assert aot.load_servable(str(tmp_path / "x"), device="cpu").encode_text(["hello world"]).shape == feats.shape
+    with pytest.raises(SystemExit, match="records the layout from THIS host"):
+        cli.main(["--model", src, "--out", str(tmp_path / "y"), "--all-devices", "--platforms", "cpu", "--device", "cpu"])
     shutil.rmtree(out)

@@ -687,3 +687,55 @@ def test_frozen_program_matches_the_live_engine(cuda, tmp_path, route):
     assert counter.launches == before + cfg.text_layers + cfg.vision_layers
     np.testing.assert_array_equal(got_t, live.encode_text(texts))
     np.testing.assert_array_equal(got_i, live.encode_image_arrays(images))
+
+
+@pytest.mark.parametrize("route", ["plain", "fused_mlp", "fused_block"])
+def test_world_one_dp_step_is_the_single_device_step_bit_for_bit(cuda, tmp_path, route):
+    """chip_smoke.py's 12a at a small width: in a world of one over NCCL the
+    data-parallel step (augmentation and EMA on) gives the single-device
+    step's losses and final state bit for bit, launching its route's
+    kernel twice a block a step."""
+    import torch.distributed as dist
+
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed
+    from clip_mixer_tpu_torch.parallel.mesh import data_group, make_mesh
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = PRESETS["mixer-debug"].replace(vision_width=128, text_width=128, text_heads=2, compute_dtype="bfloat16",
+                                         fused_mlp=route == "fused_mlp")
+    tcfg = TrainConfig(augment=True, ema_decay=0.9, learning_rate=1e-3)
+    rng = np.random.default_rng(0)
+    batches = [{"images": torch.from_numpy(rng.integers(0, 256, (8, 40, 40, 3), dtype=np.uint8)).to(cuda),
+                "texts": torch.from_numpy(rng.integers(1, 400, (8, cfg.context_length)).astype(np.int32)).to(cuda)}
+               for _ in range(2)]
+    assert maybe_initialize_distributed(cuda, coordinator=f"file://{tmp_path / 'store'}", num_processes=1,
+                                        process_id=0, timeout_s=120)
+    try:
+        group = data_group(make_mesh(device=cuda))
+        assert dist.get_backend(group) == "nccl"
+        runs = {}
+        for name, g in (("single", None), ("dp", group)):
+            model = CLIP(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+            if route == "fused_block":
+                kmb.route_towers(model, True)
+            opt = make_optimizer(tcfg, total_steps=2)
+            state, step = init_train_state(model, opt), make_train_step(cfg, tcfg, opt, group=g)
+            counter = {"fused_mlp": ln_mlp, "fused_block": fused_mixer_block_tbd}.get(route)
+            before = None if counter is None else counter.launches
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(m["loss"].detach().clone())
+            if counter is not None:
+                # a launch a block in each forward (the backward runs the unfused chain)
+                assert counter.launches - before == 2 * (cfg.vision_layers + cfg.text_layers)
+            runs[name] = (losses, {**state.model.state_dict(), **{f"ema.{k}": v for k, v in state.opt_state.ema.items()}})
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(runs["dp"][0], runs["single"][0]):
+        assert torch.equal(a, b)
+    for k, v in runs["single"][1].items():
+        assert torch.equal(runs["dp"][1][k], v), k

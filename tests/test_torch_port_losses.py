@@ -117,8 +117,35 @@ def test_contrastive_loss_errors_match_jax():
             mod.contrastive_loss("triplet", arr(img), arr(txt), arr(s))
     with pytest.raises(ValueError, match="not divisible"):
         tloss.info_nce(torch.tensor(img), torch.tensor(txt), torch.tensor(s), chunk_size=3)
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tloss.info_nce(torch.tensor(img), torch.tensor(txt), torch.tensor(s), group=object())
+
+
+@pytest.mark.parametrize("kind", ["info_nce", "info_nce_gtg", "info_nce_chunked", "siglip"])
+def test_a_group_of_one_is_the_one_device_loss_bit_for_bit(kind, tmp_path):
+    """The cross-device forms on a process group of one (gloo, in this
+    process) give the one-device loss and gradients bit for bit: the
+    gather is a copy, the labels' offset 0, the ring one tick. Worlds of 2
+    and 4 are held to JAX's mesh forms in tests/test_torch_port_parallel.py."""
+    import torch.distributed as dist
+
+    img, txt = _features(B=8, seed=6)
+    kw = {"info_nce": {}, "info_nce_gtg": dict(grad_through_gather=True),
+          "info_nce_chunked": dict(chunk_size=4), "siglip": {}}[kind]
+    name = "siglip" if kind == "siglip" else "info_nce"
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        out = []
+        for group in (None, dist.group.WORLD):
+            args = [torch.tensor(img, requires_grad=True), torch.tensor(txt, requires_grad=True),
+                    torch.tensor(np.float32(12.0), requires_grad=True)]
+            if name == "siglip":
+                args.append(torch.tensor(np.float32(-10.0), requires_grad=True))
+            loss = getattr(tloss, f"{name}_loss" if name == "siglip" else name)(*args, group=group, **kw)
+            loss.backward()
+            out.append([loss.detach()] + [a.grad for a in args])
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
 
 
 def test_train_config_matches_jax_field_by_field():

@@ -88,7 +88,7 @@ def test_release_verify(releases, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--all-devices"], "item 16"),
+    (["--all-devices", "--platforms", "cpu"], "records the layout from THIS host"),
     (["--platforms", "cuda"], "recorded on the exporting process's device"),
 ])
 def test_release_refusals(tmp_path, flags, match):

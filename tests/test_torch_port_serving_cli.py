@@ -148,15 +148,26 @@ def test_index_endpoint_replaces_the_bank(setup, tmp_path):
 
 @pytest.mark.parametrize("case", ["all_devices", "frozen_dir"])
 def test_cli_refusals(setup, tmp_path, case):
-    if case == "all_devices":
-        with pytest.raises(SystemExit, match="--all-devices is not ported .* item 16"):
-            build_server(["--model", setup["export"], "--device", "cpu", "--all-devices"])
-        return
-    # a frozen directory refuses the flags that would re-trace its encoders, before loading anything
+    # a frozen directory refuses the flags that would re-trace its encoders (or, for
+    # --all-devices, rebuild the layout its manifest records), before loading anything
     os.makedirs(tmp_path / "servable")
     (tmp_path / "servable" / "manifest.json").write_text("{}")
-    with pytest.raises(SystemExit, match="--int8 would re-trace the encoders.*--no-frozen"):
-        build_server(["--model", str(tmp_path), "--device", "cpu", "--int8", "scales.npz"])
+    flag, name = (["--all-devices"], "--all-devices") if case == "all_devices" else (["--int8", "scales.npz"], "--int8")
+    with pytest.raises(SystemExit, match=f"{name} would re-trace the encoders.*--no-frozen"):
+        build_server(["--model", str(tmp_path), "--device", "cpu", *flag])
+
+
+def test_cli_all_devices_serves_every_visible_card(setup, monkeypatch):
+    """--all-devices: one engine over serving.local_mesh(); with no card, or
+    one, the single-device engine (JAX's local_mesh is None there too)."""
+    server, engine = build_server(["--model", setup["export"], "--device", "cpu", "--all-devices", "--port", "0"])
+    server.server_close()
+    assert engine.devices is None and len(engine.replicas) == 1
+    calls = []
+    monkeypatch.setattr("clip_mixer_tpu_torch.serving.local_mesh", lambda: calls.append(1) or None)
+    server, engine = build_server(["--model", setup["export"], "--device", "cpu", "--all-devices", "--port", "0"])
+    server.server_close()
+    assert calls == []  # --device cpu: the cards are not asked
 
 
 def test_cli_defaults_to_the_card(setup, monkeypatch):

@@ -63,6 +63,8 @@ UNPORTED = {
     "--fsdp": ["--fsdp"],
     "--tensor-parallel": ["--tensor-parallel", "2"],
     "--pipeline-stages": ["--pipeline-stages", "2"],
+}
+LAUNCH = {
     "--coordinator": ["--coordinator", "localhost:1234"],
     "--num-processes": ["--num-processes", "2"],
     "--process-id": ["--process-id", "0"],
@@ -73,6 +75,17 @@ UNPORTED = {
 def test_each_unported_flag_exits_with_its_roadmap_item(flag):
     with pytest.raises(SystemExit, match=f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, "):
         train_cli.main(RUN + UNPORTED[flag])
+    assert not os.path.exists("outputs")
+
+
+@pytest.mark.parametrize("flag", sorted(LAUNCH))
+def test_each_launch_flag_alone_exits_naming_the_other_two(flag):
+    """The explicit rendezvous takes its three flags together
+    (tests/test_torch_port_multiprocess.py launches two processes with
+    them); one alone exits before anything starts."""
+    others = sorted(set(LAUNCH) - {flag})
+    with pytest.raises(SystemExit, match=f"{flag} without {others[0]}, {others[1]}"):
+        train_cli.main(RUN + LAUNCH[flag])
     assert not os.path.exists("outputs")
 
 
