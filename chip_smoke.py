@@ -288,6 +288,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (``preprocess`` a device chunk, then the image tower) split over the
    mesh bit for bit the single-device one, the device bank's top-5 alike,
    and the towers at bucket 128 timed three ways in turns.
+13. Sharded training (FSDP2 and tensor parallelism), a world of one over
+   NCCL. 13a: full-width Mixer-B/32 (bf16, EMA, augmentation) at B = 256
+   takes 3 steps on each route (plain, ``fused_mlp``, fused-block) through
+   ``make_fsdp_train_step`` on a model sharded by ``apply_fsdp``, beside the
+   single-device and the data-parallel steps in turns: every loss, and every
+   parameter, Adam moment and EMA entry after the last, bit for bit the
+   single-device step's; 24 ``ln_mlp`` or ``fused_mixer_block`` launches a
+   step on their routes; step ms (steps 2-3) and peak memory of the three.
+   13b: ``shard_model_tp`` over a model group of one on Mixer-B/32 (plain)
+   and ViT-B/32 (head-split attention), 2 steps each, bit for bit the whole
+   model's (a group of one moves nothing across cards). 13c: ``train_cli
+   --fsdp`` in a world of one: a run straight through, one stopped by the
+   drill after its save at step 2 and resumed; the two last sharded
+   checkpoints bit for bit; seconds to the first step.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -4278,13 +4292,15 @@ def dp_syncbn_siglip(dev, counters, group):
     return out
 
 
-def dp_cli_run(root, run_name, extra, dev_log):
+def dp_cli_run(root, run_name, extra, dev_log, args=None):
     """Start one ``train_cli`` process of a world of one (its own free port)
-    in ``root``: (the process, its start time, its heartbeat file and that
-    file's mtime before the start, None where it was absent)."""
+    in ``root``, with ``args`` (DP_CLI_ARGS when None): (the process, its
+    start time, its heartbeat file and that file's mtime before the start,
+    None where it was absent)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
-    argv = [sys.executable, "-m", "clip_mixer_tpu_torch.train_cli", *DP_CLI_ARGS, *DP_CLI_DEVICE,
+    argv = [sys.executable, "-m", "clip_mixer_tpu_torch.train_cli", *(DP_CLI_ARGS if args is None else args),
+            *DP_CLI_DEVICE,
             "--global-batch-size", str(DP_CLI_B), "--steps-per-epoch", str(DP_CLI_STEPS),
             "--checkpoint-every", str(DP_CLI_CRASH), "--run-name", run_name,
             "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1", "--process-id", "0", *extra]
@@ -4501,6 +4517,273 @@ def dp_path(dev, counters):
     return out
 
 
+# ---- phase 13: sharded training: FSDP2 and tensor parallelism -----------------
+
+SHARD_B = 256  # 13a/13b's global batch (a world of one holds all of it)
+SHARD_STEPS = 3  # 13a: steps on each route; steps 2-3 are timed
+SHARD_TP_STEPS = 2  # 13b: steps of each model with a model group of one
+SHARD_CLI_ARGS = ["--synthetic", "--preset", "mixer-b32", "--no-validators", "--epochs", "1", "--fsdp"]
+
+
+def shard_steps(dev, counters, cfg, tcfg, mesh, batches, what, per_step, fused_block=False):
+    """The single-device step, the data-parallel step (both with
+    ``grad_through_gather``) and the FSDP step (``apply_fsdp`` over the
+    mesh's data group) in turns over ``batches``,
+    each on its own CLIP from seed 0: each step's loss and, after the last,
+    every parameter, buffer, Adam moment and EMA entry of the FSDP step bit
+    for bit the single-device step's (the FSDP state gathered whole); each
+    step timed with CUDA events and its peak memory read; the FSDP steps'
+    launches, ``per_step`` a step."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.parallel.fsdp import apply_fsdp, gather_full, make_fsdp_train_step
+    from clip_mixer_tpu_torch.parallel.mesh import data_group
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    runs = {}
+    for name in ("single", "dp", "fsdp"):
+        model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        if fused_block:
+            route_towers(model, True)
+        opt = make_optimizer(tcfg, total_steps=SHARD_STEPS)
+        if name == "fsdp":
+            apply_fsdp(model, mesh)
+            step = make_fsdp_train_step(cfg, tcfg, opt, mesh)
+        else:
+            # the exact global loss, as the FSDP step trains it
+            step = make_train_step(cfg, tcfg, opt, grad_through_gather=True,
+                                   group=data_group(mesh) if name == "dp" else None)
+        runs[name] = (init_train_state(model, opt), step)
+    free_card()
+    times = {k: [] for k in runs}
+    host = {k: [] for k in runs}
+    peaks = {k: [] for k in runs}
+    launches = dict.fromkeys(counters.read(), 0)
+    losses = []
+    for i, batch in enumerate(batches):
+        got = {}
+        for name, (state, step) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before = counters.read()
+            start.record()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            host[name].append((time.perf_counter() - t0) * 1e3)  # the step's dispatch on the host
+            end.record()
+            end.synchronize()
+            if name == "fsdp":
+                c = expect(counters, before, f"{what} step {i + 1}", **per_step)
+                launches = {k: v + c[k] - before[k] for k, v in launches.items()}
+            times[name].append(start.elapsed_time(end))
+            peaks[name].append(torch.cuda.max_memory_allocated() / 1e9)
+            got[name] = m["loss"].detach().clone()
+            require(bool(torch.isfinite(m["loss"])), f"{what} {name} step {i + 1}: loss {float(m['loss'])}")
+        require(torch.equal(got["single"], got["fsdp"]),
+                f"{what} step {i + 1}: loss {float(got['fsdp'])} FSDP, {float(got['single'])} single")
+        losses.append(float(got["fsdp"]))
+    single, fsdp = runs["single"][0], runs["fsdp"][0]
+    whole = {f"model.{k}": v for k, v in gather_full(fsdp.model).items()}
+    opt = fsdp.opt_state
+    for w, d in (("mu", opt.mu), ("nu", opt.nu)):
+        whole.update({f"{w}.{k}": v for k, v in d.items()})
+    whole.update({f"ema.{k}": v for k, v in gather_full(fsdp.model, opt.ema).items()})
+    same_bits(whole, train_state_tensors(single), f"{what} final state")
+    sharded = [n for n, p in fsdp.model.named_parameters() if hasattr(p, "placements")]
+    out = {"steps": len(batches), "step_ms": {k: v[1:] for k, v in times.items()}, "step1_ms": {k: v[0] for k, v in
+           times.items()}, "host_ms": {k: v[1:] for k, v in host.items()}, "peak_mem_gb": peaks, "launches": launches, "losses": losses, "bit_for_bit": True,
+           "fsdp_managed_params": len(sharded), "params": sum(1 for _ in fsdp.model.parameters())}
+    del runs, single, fsdp, whole
+    free_card()
+    return out
+
+
+def shard_fsdp(dev, counters, mesh):
+    """13a: full-width Mixer-B/32 (bf16, f32 masters, EMA, augmentation on)
+    takes SHARD_STEPS steps at SHARD_B on each route through the FSDP step,
+    beside the single-device and the data-parallel steps, bit for bit."""
+    import dataclasses
+
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.ops.augment import source_size
+
+    base = PRESETS["mixer-b32"]
+    tcfg = TrainConfig(augment=True, ema_decay=DP_EMA)
+    src = dataclasses.replace(base, image_resolution=source_size(base.image_resolution))
+    batches = [on_device(train_batch(src, SHARD_B, seed=s), dev) for s in (30, 31, 32)]
+    blocks = base.vision_layers + base.text_layers
+    out = {"B": SHARD_B, "ema_decay": DP_EMA}
+    for route in ("plain", "fused_mlp", "fused_block"):
+        cfg = base.replace(fused_mlp=route == "fused_mlp")
+        per_step = {"ln_mlp": blocks if route == "fused_mlp" else 0,
+                    "fused_mixer_block": blocks if route == "fused_block" else 0, "preprocess": 0}
+        out[route] = shard_steps(dev, counters, cfg, tcfg, mesh, batches, f"13a {route}", per_step,
+                                 fused_block=route == "fused_block")
+        log(f"phase 13a {route}: bit for bit; step ms {out[route]['step_ms']}, peak GB {out[route]['peak_mem_gb']}")
+    out["launches"] = {k: sum(out[r]["launches"][k] for r in ("plain", "fused_mlp", "fused_block")) for k in
+                       out["plain"]["launches"]}
+    return out
+
+
+def tp_pair(dev, counters, cfg, tcfg, group, batches, what):
+    """SHARD_TP_STEPS steps of ``cfg`` whole and cut by ``shard_model_tp``
+    over ``group`` (a model group of one), in turns: the losses and the
+    final state (the slices gathered whole) against each other; the
+    largest difference where they are not bit for bit."""
+    from clip_mixer_tpu_torch import CLIP
+    from clip_mixer_tpu_torch.parallel.tp import gather_tp, heads_of, shard_model_tp
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    runs = {}
+    for name in ("whole", "tp"):
+        model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        if name == "tp":
+            shard_model_tp(model, group)
+        opt = make_optimizer(tcfg, total_steps=SHARD_TP_STEPS)
+        runs[name] = (init_train_state(model, opt), make_train_step(cfg, tcfg, opt))
+    free_card()
+    losses, times, host = {k: [] for k in runs}, {k: [] for k in runs}, {k: [] for k in runs}
+    before = counters.read()
+    for batch in batches:
+        for name, (state, step) in runs.items():
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+            losses[name].append(m["loss"].detach().clone())
+    expect(counters, before, what, ln_mlp=0, fused_mixer_block=0, preprocess=0)
+
+    def tensors(state):
+        model, tp = state.model, getattr(state.model, "tp_group", None)
+        out = {}
+        for what_, d in (("model", model.state_dict()), ("mu", state.opt_state.mu), ("nu", state.opt_state.nu),
+                         ("ema", state.opt_state.ema or {})):
+            out.update({f"{what_}.{k}": gather_tp(k, v, tp, heads_of(model, k)) for k, v in d.items()})
+        return out
+
+    a, b = tensors(runs["whole"][0]), tensors(runs["tp"][0])
+    diff = {k: float((a[k].float() - b[k].float()).abs().max()) for k in a if not torch.equal(a[k], b[k])}
+    out = {"losses": {k: [float(x) for x in v] for k, v in losses.items()}, "step_ms": times, "host_ms": host,
+           "losses_bit_for_bit": all(torch.equal(x, y) for x, y in zip(losses["whole"], losses["tp"])),
+           "state_bit_for_bit": not diff, "max_abs_diff": max(diff.values(), default=0.0),
+           "differing": sorted(diff, key=diff.get)[-5:]}
+    del runs
+    free_card()
+    return out
+
+
+def shard_tp(dev, counters, mesh):
+    """13b: the tensor-parallel code on the card with a model group of one:
+    full-width Mixer-B/32 (the plain route) and ViT-B/32 (head-split
+    attention), SHARD_TP_STEPS steps each, bit for bit the whole model's.
+    A group of one runs the collectives on one rank: what they move across
+    cards is not measured here."""
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    group = mesh.get_group(MODEL_AXIS)
+    out = {"model_group_size": torch.distributed.get_world_size(group)}
+    for name, preset, tcfg in (("mixer_b32", "mixer-b32", TrainConfig(ema_decay=DP_EMA)),
+                               ("vit_b32", VIT_PRESET, TrainConfig(learning_rate=VIT_TRAIN_LR, ema_decay=DP_EMA))):
+        cfg = PRESETS[preset]
+        batches = [on_device(train_batch(cfg, SHARD_B, seed=s), dev) for s in (33, 34)][:SHARD_TP_STEPS]
+        out[name] = tp_pair(dev, counters, cfg, tcfg, group, batches, f"13b {name}")
+        log(f"phase 13b {name}: {out[name]}")
+        require(out[name]["losses_bit_for_bit"] and out[name]["state_bit_for_bit"],
+                f"13b {name}: not bit for bit, largest difference {out[name]['max_abs_diff']} at "
+                f"{out[name]['differing']}")
+    return out
+
+
+def shard_cli(dev):
+    """13c: ``train_cli --fsdp`` (full-width Mixer-B/32, a world of one over
+    NCCL, global batch DP_CLI_B): DP_CLI_STEPS steps straight, beside a run
+    the drill stops after its checkpoint at step DP_CLI_CRASH, resumed by a
+    third process; the two runs' last sharded checkpoints (``shard-0.pt``:
+    the parameters, Adam's moments, the step) bit for bit; seconds to the
+    first step."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_cli_")
+    out = {"argv": SHARD_CLI_ARGS, "B": DP_CLI_B, "steps": DP_CLI_STEPS, "crash_after": DP_CLI_CRASH}
+    try:
+        runs = {"straight": dp_cli_run(root, "straight", [], os.path.join(root, "straight.log"), SHARD_CLI_ARGS),
+                "crashed": dp_cli_run(root, "resumed", ["--crash-after-steps", str(DP_CLI_CRASH)],
+                                      os.path.join(root, "crashed.log"), SHARD_CLI_ARGS)}
+        res = {k: dp_cli_wait(*runs[k], os.path.join(root, f"{k}.log")) for k in runs}
+        rc, s, first, text = res["straight"]
+        require(rc == 0, f"train_cli --fsdp (uninterrupted) exited {rc}: {text[-3000:]}")
+        out["straight"] = {"s": s, **first}
+        rc, s, first, text = res["crashed"]
+        require(rc != 0 and "fault injection" in text, f"the crash drill: exit {rc}: {text[-3000:]}")
+        out["crashed"] = {"rc": rc, "s": s}
+        rc, s, first, text = dp_cli_wait(*dp_cli_run(root, "resumed", [], os.path.join(root, "resume.log"),
+                                                     SHARD_CLI_ARGS), os.path.join(root, "resume.log"))
+        require(rc == 0, f"train_cli --fsdp (resumed) exited {rc}: {text[-3000:]}")
+        out["resumed"] = {"s": s, **first}
+        last = os.path.join("checkpoints", str(DP_CLI_STEPS))
+        files = sorted(os.listdir(os.path.join(root, "outputs", "straight", last)))
+        require(files == ["layout.json", "meta.json", "shard-0.pt"], f"13c checkpoint files {files}")
+        a, b = (torch.load(os.path.join(root, "outputs", r, last, "shard-0.pt"), map_location="cpu",
+                           weights_only=True) for r in ("resumed", "straight"))
+        require(a["step"] == b["step"] == DP_CLI_STEPS, f"steps {a['step']} / {b['step']}")
+        flat = [{**{f"model.{k}": v for k, v in x["model"].items()},
+                 **{f"{w}.{k}": v for w in ("mu", "nu") for k, v in x["opt_state"][w].items()}} for x in (a, b)]
+        same_bits(*flat, "13c resumed shard-0.pt")
+        with open(os.path.join(root, "outputs", "straight", last, "layout.json")) as f:
+            lay = json.load(f)
+        out["layout"] = {k: lay[k] for k in ("world", "n_data", "n_model", "fsdp")}
+        out["resume_bit_for_bit"] = True
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 13c: {out}")
+    return out
+
+
+def shard_path(dev, counters):
+    """Phase 13: FSDP2 and tensor parallelism in a world of one over NCCL,
+    every part with the counters read around its own calls."""
+    import inspect
+
+    import torch.distributed as dist
+    from torch.distributed.fsdp import fully_shard
+
+    from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed
+    from clip_mixer_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    log(f"phase 13: fully_shard{inspect.signature(fully_shard)}")
+    require(not dist.is_initialized(), "a process group is already up")
+    require(maybe_initialize_distributed(dev, coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                                         process_id=0, timeout_s=300), "init_process_group")
+    try:
+        mesh = make_mesh(n_data=1, n_model=1, device=dev)
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "fully_shard": str(inspect.signature(fully_shard))}
+        out["fsdp"] = shard_fsdp(dev, counters, mesh)
+        emit({"shard_fsdp": out["fsdp"]})
+        out["tp"] = shard_tp(dev, counters, mesh)
+        emit({"shard_tp": out["tp"]})
+    finally:
+        dist.destroy_process_group()
+    out["cli"] = shard_cli(dev)
+    out["launches"] = out["fsdp"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4608,8 +4891,15 @@ def main() -> int:
     for row in kernels:  # each kernel's launches in phase 12's data-parallel steps and mesh serving, added
         row["dp_launches"] = {part: dp["launches"][part][row["name"]] for part in ("train", "serving")}
         row["launches"] += sum(row["dp_launches"].values())
+    shard = shard_path(dev, counters)
+    emit({"shard": {k: v for k, v in shard.items() if k not in ("fsdp", "tp")}})
+    for name in ("ln_mlp", "fused_mixer_block"):
+        require(shard["launches"][name] > 0, f"phase 13's FSDP steps never launched {name}")
+    for row in kernels:  # each kernel's launches in phase 13's FSDP steps, added
+        row["shard_launches"] = shard["launches"][row["name"]]
+        row["launches"] += row["shard_launches"]
     emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
-          "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"]})
+          "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -197,11 +197,11 @@ class TrainConfig:
     retention, the non-finite abort, the fault drills, ``max_inflight_steps``,
     the seed and ``freeze_serving`` (the export's frozen serving programs,
     ``aot.freeze_programs``) and, across processes,
-    ``preemption_sync_every_steps`` (the cadence of the agreed stop). Two
-    fields wait: ``fsdp`` and ``pipeline_microbatches``, for the sharded
-    and pipelined steps (ROADMAP.md, item 16). They are carried and
-    validated as the JAX package validates them; the trainer refuses
-    ``fsdp``.
+    ``preemption_sync_every_steps`` (the cadence of the agreed stop) and
+    ``fsdp`` (the parameters and optimiser state sharded over the mesh's
+    data dimension, ``parallel/fsdp.py``). ``pipeline_microbatches`` waits
+    for the pipelined step (ROADMAP.md, item 16b); it is carried and
+    validated as the JAX package validates it.
     """
 
     global_batch_size: int = 32768

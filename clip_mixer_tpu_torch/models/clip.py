@@ -111,7 +111,9 @@ class CLIP(nn.Module):
         returns ``{}`` (a frozen vision tower keeps them, as torch's
         ``eval()`` does)."""
         if not self.cfg.is_resnet or bn_eval:
-            img, txt, scale = self(images, text)
+            # forward itself, not self(...): under FSDP this method is the
+            # root's registered forward (parallel/fsdp.py), hooked once
+            img, txt, scale = self.forward(images, text)
             return img, txt, scale, {}
         feats, bn_stats = resnet_encoder_train(self.visual, images, group)
         return l2_normalize(feats), l2_normalize(self.encode_text(text)), self.logit_scale.exp(), bn_stats

@@ -39,6 +39,7 @@ from clip_mixer_tpu_torch.models.layers import (
     token_mix_branch,
 )
 from clip_mixer_tpu_torch.ops.kernels.ln_mlp import ln_mlp
+from clip_mixer_tpu_torch.parallel.tp import tp_channel_mlp
 
 
 class TokenMix(nn.Module):
@@ -62,11 +63,15 @@ def token_mix(block: "MixerBlock", x: torch.Tensor) -> torch.Tensor:
 
 class MixerBlock(nn.Module):
     """One block on x [B, T, W]. ``fused_mlp`` runs the channel mix through
-    the fused LN + MLP kernel."""
+    the fused LN + MLP kernel. ``model_group`` (set by
+    ``parallel/tp.py::shard_model_tp``, which cuts the channel mix's hidden
+    dimension to this rank's slice) runs the channel mix split over that
+    group; the token mix stays whole, as in JAX."""
 
     def __init__(self, width: int, tokens: int, fused_mlp: bool = False):
         super().__init__()
         self.fused_mlp = fused_mlp
+        self.model_group = None
         self.layerNorm1 = LayerNorm(width)
         self.token_mix_seq = TokenMix(tokens)
         self.layerNorm2 = LayerNorm(width)
@@ -74,6 +79,10 @@ class MixerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = block_parameters(self)
+        if self.model_group is not None:
+            if self.fused_mlp:
+                raise ValueError("fused_mlp runs no kernel under a model group (as in JAX): use the plain route")
+            return tp_channel_mlp(x + token_mix_branch(x, *params[:6]), *params[6:], self.model_group)
         if not self.fused_mlp:
             return mixer_block_chain(x, *params)
         x = x + token_mix_branch(x, *params[:6])

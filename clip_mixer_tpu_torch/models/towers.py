@@ -32,10 +32,12 @@ from clip_mixer_tpu_torch.models.transformer import TransformerTower, init_trans
 
 
 def require_ported(cfg: CLIPConfig) -> None:
-    """Raise for what the port does not have yet: the multi-device fields."""
-    for field in ("model_axis", "pipeline_axis"):
-        if getattr(cfg, field):
-            raise NotImplementedError(f"CLIPConfig.{field} is not ported yet (ROADMAP.md, Slice F)")
+    """Raise for what the port does not have yet: pipeline stages.
+    ``model_axis`` is taken: the blocks split over a model group once
+    ``parallel/tp.py::shard_model_tp`` has cut them."""
+    if cfg.pipeline_axis:
+        raise NotImplementedError("CLIPConfig.pipeline_axis is not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 16b, pipeline stages)")
 
 
 def remat_policy(cfg: CLIPConfig) -> Optional[str]:

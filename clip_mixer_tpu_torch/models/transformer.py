@@ -39,6 +39,7 @@ from clip_mixer_tpu_torch.models.layers import (
     layer_norm,
 )
 from clip_mixer_tpu_torch.models.mixer import remat_context_fn
+from clip_mixer_tpu_torch.parallel.tp import tp_attention, tp_channel_mlp
 
 
 def attention_heads_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,19 +100,28 @@ class MLP(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """x + MHA(LN_1(x)), then + MLP(LN_2(x)), on x [B, T, W]."""
+    """x + MHA(LN_1(x)), then + MLP(LN_2(x)), on x [B, T, W]. With
+    ``model_group`` (set by ``parallel/tp.py::shard_model_tp``) attention
+    is split by heads and the MLP by its hidden dimension over that group,
+    as in JAX."""
 
     def __init__(self, width: int, n_heads: int):
         super().__init__()
         self.n_heads = n_heads
+        self.model_group = None
         self.ln_1 = LayerNorm(width)
         self.attn = Attention(width)
         self.ln_2 = LayerNorm(width)
         self.mlp = MLP(width)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        m, g = self.mlp, self.model_group
+        if g is not None:
+            y = layer_norm(x, self.ln_1.weight, self.ln_1.bias)
+            x = x + tp_attention(self.attn, y, x.shape[-1] // self.n_heads, mask, g)
+            return tp_channel_mlp(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight, m.c_fc.bias, m.c_proj.weight,
+                                  m.c_proj.bias, g)
         x = x + multi_head_attention(self.attn, layer_norm(x, self.ln_1.weight, self.ln_1.bias), self.n_heads, mask)
-        m = self.mlp
         # the MLP's hidden product carries the "mlp_hidden" tag (remat)
         return channel_mlp(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight, m.c_fc.bias, m.c_proj.weight,
                            m.c_proj.bias)

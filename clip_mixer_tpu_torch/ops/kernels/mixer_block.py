@@ -319,12 +319,26 @@ def mixer_tower_fused(tower, x: torch.Tensor) -> torch.Tensor:
     return h.transpose(0, 1)
 
 
+def is_routed(model) -> bool:
+    """Whether a tower of ``model`` is bound to :func:`mixer_tower_fused`."""
+    return any("forward" in vars(t) for t in (getattr(model.visual, "transformer", None), model.transformer)
+               if t is not None)
+
+
 def route_towers(model, fused: bool) -> None:
     """Bind (``fused``) or unbind both of a CLIP model's towers' ``forward``
     to :func:`mixer_tower_fused`: the fused-block route. The model's
     state-dict keys and config do not change; transformer towers keep their
-    own chain."""
-    for tower in (model.visual.transformer, model.transformer):
+    own chain. A model whose blocks are split over a model group refuses the
+    route (JAX runs no kernel under a model axis), and so does one already
+    sharded by FSDP: route it before ``parallel/fsdp.py::apply_fsdp``, which
+    then makes each routed tower one unit."""
+    if fused and getattr(model, "tp_group", None) is not None:
+        raise ValueError("the fused-block route runs no kernel under a model group (as in JAX): train the plain "
+                         "route with tensor parallelism")
+    if getattr(model, "fsdp_mesh", None) is not None:
+        raise ValueError("route the towers before parallel/fsdp.py::apply_fsdp, not after")
+    for tower in (getattr(model.visual, "transformer", None), model.transformer):
         if not hasattr(tower, "mixBlocks"):
             continue
         if fused:

@@ -102,9 +102,16 @@ def maybe_initialize_distributed(
 def rank_device(device: DeviceLike = None) -> torch.device:
     """The device this process trains on: ``device`` as named; a bare
     ``cuda`` under an initialised group is the card ``LOCAL_RANK`` names
-    (``torchrun``), else the rank modulo the cards visible."""
+    (``torchrun``), else the rank modulo the cards visible. An indexed
+    ``cuda:N`` in a world of more than one rank is refused: it would bind
+    every rank to the same card, which NCCL does not take."""
     dev = resolve_device(device)
-    if dev.type != "cuda" or dev.index is not None or not dist.is_initialized():
+    if dev.type != "cuda" or not dist.is_initialized():
+        return dev
+    if dev.index is not None:
+        if dist.get_world_size() > 1:
+            raise ValueError(f"device {dev} names one card for all {dist.get_world_size()} ranks: pass a bare "
+                             "'cuda' and each rank takes the card LOCAL_RANK names")
         return dev
     local = os.environ.get("LOCAL_RANK")
     index = int(local) if local else dist.get_rank() % torch.cuda.device_count()

@@ -1,13 +1,16 @@
-"""The data-parallel layout: a device mesh, the batch split, the replicated model.
+"""The parallel layout: a device mesh, the batch split, the replicated model.
 
 Counterpart of ``clip_mixer_tpu/parallel/mesh.py``. JAX holds one global
 array sharded over a ``("data", "model")`` mesh; here each process holds its
-own rows and its own replica of the model, and the mesh is a
-``torch.distributed`` :class:`DeviceMesh` with the same dimension names,
-whose ``"data"`` group the train step's collectives run over.
-
-Only ``n_model = 1`` is ported: tensor parallelism waits for its ROADMAP.md
-item. As in JAX, a layout that would leave ranks idle is refused.
+own rows and its own replica (or slice) of the model, and the mesh is a
+``torch.distributed`` :class:`DeviceMesh` with the same dimension names. Its
+``"data"`` group carries the loss's gather, the gradients' mean and FSDP's
+shards (``parallel/fsdp.py``); its ``"model"`` group carries tensor
+parallelism's collectives (``parallel/tp.py``). Ranks are laid out row-major:
+rank ``i * n_model + j`` is data row ``i``, model column ``j``; the ranks of
+one data row hold the same batch rows, as JAX's ``batch_sharding`` splits the
+batch over ``"data"`` only. As in JAX, a layout that would leave ranks idle is
+refused.
 """
 
 from __future__ import annotations
@@ -29,11 +32,8 @@ MODEL_AXIS = "model"
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device: DeviceLike = None) -> DeviceMesh:
     """A ``(data, model)`` mesh over every rank of the default process group
     (which must be up), of ``device``'s type."""
-    if n_model != 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: tensor parallelism is not ported to clip_mixer_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 16b, tensor parallelism)"
-        )
+    if n_model < 1:
+        raise ValueError(f"n_model must be >= 1, got {n_model}")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group (parallel/dist.py)")
     n = dist.get_world_size()
@@ -51,6 +51,22 @@ def data_group(mesh: Optional[DeviceMesh]):
     """The process group of the mesh's data dimension; None (one device)
     for no mesh."""
     return None if mesh is None else mesh.get_group(DATA_AXIS)
+
+
+def model_group(mesh: Optional[DeviceMesh]):
+    """The process group of the mesh's model dimension (tensor
+    parallelism); None for no mesh or a model dimension of one rank."""
+    if mesh is None or mesh.size(1) == 1:
+        return None
+    return mesh.get_group(MODEL_AXIS)
+
+
+def data_index(mesh: Optional[DeviceMesh]) -> tuple:
+    """(this rank's data row, the data rows): the share of the global batch
+    it holds, (0, 1) for no mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank(DATA_AXIS), mesh.size(0)
 
 
 def shard_batch(group, batch: Dict[str, np.ndarray], process_local: bool = False) -> Dict[str, np.ndarray]:
@@ -80,9 +96,11 @@ def shard_batch(group, batch: Dict[str, np.ndarray], process_local: bool = False
 
 @torch.no_grad()
 def replicate(group, module: torch.nn.Module) -> torch.nn.Module:
-    """Broadcast rank 0's parameters and buffers to every rank of ``group``,
-    in place, so every replica starts from the same state whatever seed or
-    checkpoint each rank loaded; a no-op for ``group=None``."""
+    """Broadcast the parameters and buffers of ``group``'s first rank to
+    every rank of ``group``, in place, so every replica starts from the same
+    state whatever seed or checkpoint each rank loaded; a no-op for
+    ``group=None``. Over a mesh's data group each model column broadcasts
+    within itself."""
     if group is None:
         return module
     src = dist.get_global_rank(group, 0)

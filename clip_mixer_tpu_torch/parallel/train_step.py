@@ -40,11 +40,19 @@ which a profiler reads (``scripts/torch_train_profile.py``).
 Steps 3-6 run alike on every rank, on the averaged gradients, so the
 replicas stay bit-identical.
 
+The same step trains a model split over ranks: under tensor parallelism
+(``parallel/tp.py``, the blocks' collectives over the mesh's model group)
+and under FSDP (``parallel/fsdp.py``, whose hooks gather the shards and
+reduce-scatter their gradients over the data group). The loss, its gather
+and :func:`average_gradients` run over the data group only, and the latter
+leaves FSDP's shards to FSDP; the optimiser works on each rank's pieces and
+takes the norm of the whole (:func:`split_groups`).
+
 The model is ``torch`` state, so the step updates ``TrainState`` in place
 and returns it with the metrics (0-d tensors on the model's device; nothing
 in the step waits for the device). The step runs on the model's device: on
-the card the kernel routes launch their kernels or raise. FSDP and pipeline
-stages wait for their ROADMAP.md items.
+the card the kernel routes launch their kernels or raise. Pipeline stages
+wait for their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from clip_mixer_tpu_torch.ops.augment import maybe_augment
 from clip_mixer_tpu_torch.ops.losses import contrastive_loss, gather_features, loss_param_keys
 from clip_mixer_tpu_torch.ops.preprocess import normalize_images
 from clip_mixer_tpu_torch.parallel.dist import world
+from clip_mixer_tpu_torch.parallel.tp import group_size, port_tp_dim
 from clip_mixer_tpu_torch.train.optimizer import OptState, Optimizer, ema_sources, tower_of
 
 
@@ -143,12 +152,30 @@ def two_pass_accum_grads(model, accum_steps: int, get_chunk, micro_feats: Callab
     return loss.detach()
 
 
+def split_groups(model) -> dict:
+    """The process groups of more than one rank that each parameter of
+    ``model`` is split over, by name: the model group for a
+    tensor-parallel slice, FSDP's data group for a ``DTensor`` shard; ()
+    for a leaf whole on every rank."""
+    tp = getattr(model, "tp_group", None)
+    out = {}
+    for n, p in model.named_parameters():
+        groups = ()
+        if tp is not None and group_size(tp) > 1 and port_tp_dim(n) is not None:
+            groups += (tp,)
+        if hasattr(p, "device_mesh") and p.device_mesh.size() > 1:
+            groups += (p.device_mesh.get_group(),)
+        out[n] = groups
+    return out
+
+
 def average_gradients(params, loss: torch.Tensor, group) -> torch.Tensor:
     """Average every parameter's ``.grad`` and ``loss`` over ``group``'s
     ranks, in place, in one all-reduce of one flat f32 bucket; returns the
     averaged loss. Parameters without a gradient (a frozen tower's, on
-    every rank alike) are left out."""
-    grads = [p.grad for p in params.values() if p.grad is not None]
+    every rank alike) are left out, and so are FSDP's shards, whose
+    gradients FSDP's reduce-scatter has averaged."""
+    grads = [p.grad for p in params.values() if p.grad is not None and not hasattr(p.grad, "device_mesh")]
     flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
     dist.all_reduce(flat, group=group)
     flat.div_(dist.get_world_size(group))
@@ -229,7 +256,7 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, gr
                 loss = average_gradients(params, loss, group)
         with record_function("train_step/update"):
             grads = {n: p.grad for n, p in params.items()}
-            grad_norm = optimizer.update(params, grads, state.opt_state)
+            grad_norm = optimizer.update(params, grads, state.opt_state, split_groups(model))
             with torch.no_grad():
                 model.logit_scale.clamp_(max=tcfg.logit_scale_max)
             if bn_stats:

@@ -23,6 +23,16 @@ Across processes every rank holds the same replica, so one writes: a
 Checkpointer opened with ``lead=False`` saves nothing and removes nothing
 (the trainer's other ranks, which wait at a barrier while the lead saves),
 and every rank restores the same files.
+
+A state split over the ranks (FSDP shards, tensor-parallel slices:
+``parallel/fsdp.py::layout``) is saved by every rank: each writes
+``shard-{rank}.pt`` (its pieces of the parameters, the buffers, Adam's
+moments and the EMA, the count and the step) into ``<id>.tmp``, which the
+lead made; after a barrier over ``group`` the lead writes ``layout.json``
+and ``meta.json``, renames the directory into place and prunes old steps.
+A restore reads this rank's shard into the same layout, bit for bit, and
+refuses a checkpoint written in another layout (another world, mesh or
+sharding, or a replicated one), naming both.
 """
 
 from __future__ import annotations
@@ -33,8 +43,12 @@ import shutil
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from clip_mixer_tpu_torch.parallel.dist import barrier
+from clip_mixer_tpu_torch.parallel.fsdp import describe, layout
 from clip_mixer_tpu_torch.train.metrics import require_local
+from clip_mixer_tpu_torch.train.optimizer import local
 
 TMP_SUFFIX = ".tmp"
 
@@ -61,12 +75,26 @@ def _copy_into(live: Optional[Dict[str, torch.Tensor]], saved: Optional[Dict[str
             t.copy_(saved[k])
 
 
+def _layout_of(path: str) -> Optional[dict]:
+    f = os.path.join(path, "layout.json")
+    if not os.path.exists(f):
+        return None
+    with open(f) as fh:
+        return json.load(fh)
+
+
+def _model_locals(model) -> Dict[str, torch.Tensor]:
+    """The model's state-dict tensors as this rank holds them."""
+    return {k: local(v) for k, v in model.state_dict(keep_vars=True).items()}
+
+
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: int = 3, lead: bool = True):
+    def __init__(self, directory: str, max_to_keep: int = 3, lead: bool = True, group=None):
         require_local(directory, "checkpoint directory")
         self.directory = os.path.abspath(os.fspath(directory))
         self.max_to_keep = max_to_keep
         self.lead = lead
+        self.group = group  # every rank that saves a shard (a split state)
         self.last_save_bytes = 0
         os.makedirs(self.directory, exist_ok=True)
         if lead:
@@ -87,11 +115,15 @@ class Checkpointer:
         """``step``: the batch index to resume from within ``epoch``;
         ``step_id``: the checkpoint's id, by default the state's step counter.
         A save of an id that exists replaces it; a Checkpointer that is not
-        the lead writes nothing."""
-        if not self.lead:
-            return
+        the lead writes nothing, unless the state is split over the ranks
+        (then each writes its shard)."""
         if step_id is None:
             step_id = int(state.step)
+        lay = layout(state.model)
+        if lay is not None:
+            return self._save_shards(state, epoch, step, step_id, lay)
+        if not self.lead:
+            return
         final = self._path(step_id)
         tmp = final + TMP_SUFFIX
         shutil.rmtree(tmp, ignore_errors=True)
@@ -105,12 +137,39 @@ class Checkpointer:
         )
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"epoch": int(epoch), "step": int(step)}, f)
+        self._commit(tmp, final)
+
+    def _commit(self, tmp: str, final: str) -> None:
+        """The lead's part of a save: ``tmp`` renamed into place, old steps
+        pruned."""
         self.last_save_bytes = sum(os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp))
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old), ignore_errors=True)
+
+    def _save_shards(self, state, epoch: int, step: int, step_id: int, lay: dict) -> None:
+        """Every rank's shard into the lead's ``<id>.tmp``, then the lead's
+        layout, meta and rename (barriers over ``group`` between)."""
+        final = self._path(step_id)
+        tmp = final + TMP_SUFFIX
+        if self.lead:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        barrier(self.group)
+        opt = state.opt_state
+        torch.save({"model": _host(_model_locals(state.model)), "step": int(state.step),
+                    "opt_state": {"count": int(opt.count), "mu": _host(opt.mu), "nu": _host(opt.nu),
+                                  "ema": _host(opt.ema)}},
+                   os.path.join(tmp, f"shard-{dist.get_rank()}.pt"))
+        barrier(self.group)
+        if self.lead:
+            with open(os.path.join(tmp, "layout.json"), "w") as f:
+                json.dump(lay, f)
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump({"epoch": int(epoch), "step": int(step)}, f)
+            self._commit(tmp, final)
 
     def all_steps(self) -> List[int]:
         """Retained step ids, ascending (at most ``max_to_keep``)."""
@@ -129,11 +188,20 @@ class Checkpointer:
         if step_id is None:
             return None
         path = self._path(step_id)
-        model_sd = torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)
-        saved = torch.load(os.path.join(path, "train_state.pt"), map_location="cpu", weights_only=True)
+        saved_lay, live_lay = _layout_of(path), layout(state.model)
+        if saved_lay != live_lay:
+            raise ValueError(f"checkpoint {path} was written {describe(saved_lay)}, but the live state is "
+                             f"{describe(live_lay)}: a restore takes the layout it was saved in")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        state.model.load_state_dict(model_sd, strict=True)
+        if live_lay is None:
+            state.model.load_state_dict(torch.load(os.path.join(path, "model.pt"), map_location="cpu",
+                                                   weights_only=True), strict=True)
+            saved = torch.load(os.path.join(path, "train_state.pt"), map_location="cpu", weights_only=True)
+        else:
+            saved = torch.load(os.path.join(path, f"shard-{dist.get_rank()}.pt"), map_location="cpu",
+                               weights_only=True)
+            _copy_into(_model_locals(state.model), saved["model"], "model")
         opt, saved_opt = state.opt_state, saved["opt_state"]
         _copy_into(opt.mu, saved_opt["mu"], "mu")
         _copy_into(opt.nu, saved_opt["nu"], "nu")

@@ -16,9 +16,13 @@ numbers:
 
 Parameters are the model's ``named_parameters()`` (state-dict keys, f32
 masters); the update is in place with ``torch._foreach_*`` ops, the same
-code on the card and on the CPU. A ResNet's BatchNorm running statistics
-are buffers, not parameters: they get no moments, no update and no decay,
-as in the JAX tree, where they are leaves whose gradient is zero. The EMA
+code on the card and on the CPU. A parameter split over ranks (an FSDP
+``DTensor`` shard, a tensor-parallel slice) is updated through its local
+tensor, so its moments and EMA are stored split alike, and the gradient
+norm counts each split leaf once across its pieces (``splits``). A
+ResNet's BatchNorm running statistics are buffers, not parameters: they
+get no moments, no update and no decay, as in the JAX tree, where they are
+leaves whose gradient is zero. The EMA
 runs over the model's whole float state (:func:`ema_sources`: the
 parameters and those running statistics), as the JAX ``update_ema`` runs
 over the whole param tree.
@@ -27,10 +31,11 @@ over the whole param tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from clip_mixer_tpu_torch.config import TrainConfig
 from clip_mixer_tpu_torch.train.schedule import warmup_cosine
@@ -56,6 +61,35 @@ def ema_sources(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     (the parameters and the persistent float buffers, i.e. the BatchNorm
     running statistics), by state-dict key."""
     return {k: v for k, v in model.state_dict(keep_vars=True).items() if v.is_floating_point()}
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """The part of ``t`` this rank holds: a ``DTensor``'s local shard (its
+    storage, so in-place updates land in the parameter), any other tensor
+    as it is."""
+    return t._local_tensor if hasattr(t, "_local_tensor") else t
+
+
+def global_norm(gs, names, splits: Optional[Mapping[str, Sequence]] = None) -> torch.Tensor:
+    """The norm of the gradients ``gs`` (local tensors, named ``names``) as
+    one vector across the ranks: a leaf split over process groups
+    (``splits[name]``, each of more than one rank) contributes the norm of
+    its whole, its pieces' squared norms summed over those groups; a leaf
+    whole on every rank counts once. Without splits it is the norm of the
+    leaves' norms, as on one device."""
+    norms = list(torch._foreach_norm(gs))
+    by_groups = {}
+    for i, n in enumerate(names):
+        groups = tuple((splits or {}).get(n, ()))
+        if groups:
+            by_groups.setdefault(groups, []).append(i)
+    for groups, idx in by_groups.items():
+        sq = torch.stack([norms[i] for i in idx]).square()
+        for g in groups:
+            dist.all_reduce(sq, group=g)
+        for j, i in enumerate(idx):
+            norms[i] = sq[j].sqrt()
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def _bias_correction(beta: float, count: int) -> float:
@@ -96,10 +130,10 @@ class Optimizer:
              ema_from: Optional[Mapping[str, torch.Tensor]] = None) -> OptState:
         """The state for ``params``; the EMA (when on) starts as a copy of
         ``ema_from`` (:func:`ema_sources` of the model), ``params`` when None."""
-        live = {n: p for n, p in params.items() if self.trainable(n)}
+        live = {n: local(p) for n, p in params.items() if self.trainable(n)}
         ema = None
         if self.tcfg.ema_decay:
-            ema = {n: p.detach().clone() for n, p in (params if ema_from is None else ema_from).items()}
+            ema = {n: local(p).detach().clone() for n, p in (params if ema_from is None else ema_from).items()}
         return OptState(
             count=0,
             mu={n: torch.zeros_like(p, memory_format=torch.preserve_format) for n, p in live.items()},
@@ -109,15 +143,17 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, Optional[torch.Tensor]],
-               state: OptState) -> torch.Tensor:
+               state: OptState, splits: Optional[Mapping[str, Sequence]] = None) -> torch.Tensor:
         """One update of the trainable ``params`` in place from ``grads``
-        (None reads as zeros); returns the global gradient norm before the
-        clip, a 0-d tensor on the parameters' device."""
+        (None reads as zeros), each through its local tensor; returns the
+        global gradient norm before the clip (:func:`global_norm`, with
+        ``splits`` naming the groups each split leaf is split over), a 0-d
+        tensor on the parameters' device."""
         t = self.tcfg
         names = list(state.mu)
-        ps = [params[n] for n in names]
-        gs = [grads[n] if grads.get(n) is not None else torch.zeros_like(params[n]) for n in names]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        ps = [local(params[n]) for n in names]
+        gs = [local(grads[n]) if grads.get(n) is not None else torch.zeros_like(p) for n, p in zip(names, ps)]
+        norm = global_norm(gs, names, splits)
         clip = torch.where(norm < t.grad_clip_norm, torch.ones_like(norm), t.grad_clip_norm / norm)
         gs = torch._foreach_mul(gs, clip)
 
@@ -148,7 +184,7 @@ class Optimizer:
         names = list(state.ema)
         emas = [state.ema[n] for n in names]
         torch._foreach_mul_(emas, self.tcfg.ema_decay)
-        torch._foreach_add_(emas, [params[n] for n in names], alpha=1.0 - self.tcfg.ema_decay)
+        torch._foreach_add_(emas, [local(params[n]) for n in names], alpha=1.0 - self.tcfg.ema_decay)
 
 
 def make_optimizer(tcfg: TrainConfig, total_steps: int) -> Optimizer:

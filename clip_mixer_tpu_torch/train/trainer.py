@@ -31,8 +31,15 @@ while the others wait at a barrier, so no rank reads a half-written step;
 each rank writes its own heartbeat, ``heartbeat-{rank}``. A stop (SIGTERM
 to any rank) is agreed every ``preemption_sync_every_steps`` by an OR over
 the ranks, so every rank saves at the same step. Every rank restores the
-same checkpoint, so a resume is bit for bit. FSDP and pipeline meshes wait
-for their ROADMAP.md items.
+same checkpoint, so a resume is bit for bit.
+
+A mesh with a model dimension cuts the blocks over it (tensor parallelism,
+``parallel/tp.py``), and ``TrainConfig.fsdp`` shards the parameters and the
+optimiser state over its data dimension (``parallel/fsdp.py``). Such a
+state is split over the ranks: every rank writes its own shards into each
+checkpoint (``train/checkpoint.py``), and the export and the validators get
+the whole parameters, gathered by every rank before rank 0 writes or
+validates. Pipeline stages wait for their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -55,7 +62,9 @@ from clip_mixer_tpu_torch.data.pipeline import DataSource, device_prefetch, pinn
 from clip_mixer_tpu_torch.device import DeviceLike, resolve_device
 from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.parallel.dist import any_across, barrier, rank_device, world
-from clip_mixer_tpu_torch.parallel.mesh import data_group, make_mesh, replicate
+from clip_mixer_tpu_torch.parallel.fsdp import apply_fsdp, gather_full, is_sharded, make_fsdp_train_step
+from clip_mixer_tpu_torch.parallel.mesh import data_group, make_mesh, model_group, replicate
+from clip_mixer_tpu_torch.parallel.tp import shard_model_tp
 from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
 from clip_mixer_tpu_torch.train.checkpoint import Checkpointer
 from clip_mixer_tpu_torch.train.metrics import MetricsWriter, require_local
@@ -85,9 +94,12 @@ class Trainer:
 
     ``device``: where the model trains, the card unless another is named
     (under a process group, a bare ``cuda`` is this rank's card).
-    ``mesh``: the data-parallel layout (``parallel/mesh.py``); by default
-    every rank of an initialised process group, else one device. ``data``
-    yields this rank's rows of each global batch.
+    ``mesh``: the parallel layout (``parallel/mesh.py``); by default every
+    rank of an initialised process group on the data dimension, else one
+    device. A model dimension above one splits the blocks over it;
+    ``tcfg.fsdp`` (which needs a mesh) shards over the data dimension.
+    ``data`` yields this rank's rows of each global batch (the ranks of one
+    data row hold the same rows).
     ``model``: a :class:`CLIP` to train in place of one initialised from
     ``tcfg.seed`` (the JAX ``params=``). ``validators``: objects with
     ``validate(step, verbose=, params=)``, called every
@@ -113,14 +125,20 @@ class Trainer:
         mesh=None,
     ):
         require_local(run_dir, "run_dir")
-        if tcfg.fsdp:
-            raise ValueError("TrainConfig.fsdp is not ported yet (ROADMAP.md, Queue 1 item 16a, FSDP2)")
+        if tcfg.fsdp and (cfg.pipeline_axis or cfg.pipeline_stages > 1):
+            raise ValueError("fsdp and pipeline parallelism are mutually exclusive")
         self.cfg, self.tcfg, self.data = cfg, tcfg, data
         if mesh is None and dist.is_initialized():
             mesh = make_mesh(device=device)
+        if tcfg.fsdp and mesh is None:
+            raise ValueError("TrainConfig.fsdp shards over a mesh's data group: initialise a process group "
+                             "(parallel/dist.py; a world of one will do) or pass mesh=")
         self.mesh = mesh
         self.group = data_group(mesh)
-        self.rank, self.world = world(self.group)
+        self.model_group = model_group(mesh)
+        # every rank of the mesh: barriers, the agreed stop, the whole-model broadcast
+        self.world_group = None if mesh is None else dist.group.WORLD
+        self.rank, self.world = world(self.world_group)
         self.is_lead = self.rank == 0
         self.verbose = verbose and self.is_lead
         self.profile_steps = profile_steps if self.is_lead else 0  # the lead's trace
@@ -138,12 +156,16 @@ class Trainer:
         self.total_steps = steps_per_epoch * tcfg.epochs
         self.optimizer = make_optimizer(tcfg, self.total_steps)
         self._schedule = self.optimizer.schedule
-        self.step_fn = make_train_step(cfg, tcfg, self.optimizer, grad_through_gather, chunk_size,
-                                       accum_steps=tcfg.accum_steps, group=self.group)
+        if tcfg.fsdp:  # the exact global loss, always, as JAX's FSDP step
+            self.step_fn = make_fsdp_train_step(cfg, tcfg, self.optimizer, mesh, chunk_size,
+                                                accum_steps=tcfg.accum_steps)
+        else:
+            self.step_fn = make_train_step(cfg, tcfg, self.optimizer, grad_through_gather, chunk_size,
+                                           accum_steps=tcfg.accum_steps, group=self.group)
         # the other ranks keep the history only
         self.writer = MetricsWriter(log_dir=os.path.join(run_dir, "runs") if self.is_lead else None)
         self.checkpointer = Checkpointer(os.path.join(run_dir, "checkpoints"), max_to_keep=tcfg.keep_checkpoints,
-                                         lead=self.is_lead)
+                                         lead=self.is_lead, group=self.world_group)
         self.validators = list(validators)
         self.validate_every_steps = tcfg.validate_every_steps or tcfg.checkpoint_every_steps
         for v in self.validators:
@@ -156,8 +178,14 @@ class Trainer:
         else:
             self.device = model.device if device is None else resolve_device(device)
             model = model.to(self.device)
-        # every replica starts from rank 0's weights (before the EMA copies them)
-        replicate(self.group, model)
+        # every replica starts from rank 0's weights (before the EMA copies
+        # them), then is cut to this rank's slices and shards
+        replicate(self.world_group, model)
+        if self.model_group is not None:
+            shard_model_tp(model, self.model_group)
+        if tcfg.fsdp:
+            apply_fsdp(model, mesh)
+        self.sharded = is_sharded(model)
         self.state = init_train_state(model, self.optimizer)
         self.timings = {"data_wait_s": [], "save_s": [], "save_bytes": [], "validate_s": [], "restore_s": None,
                         "export_s": None}
@@ -172,8 +200,8 @@ class Trainer:
         # the step of the newest checkpoint, known alike on every rank (the
         # disk is not: the lead may be renaming a save into place)
         self._saved_step = self.checkpointer.latest_step()
-        if self.group is not None:
-            barrier(self.group)  # every rank has read the checkpoint before the lead may write one
+        if self.world_group is not None:
+            barrier(self.world_group)  # every rank has read the checkpoint before the lead may write one
 
     @property
     def global_step(self) -> int:
@@ -235,11 +263,11 @@ class Trainer:
         once. Across processes: every ``preemption_sync_every_steps``, the
         OR of the ranks' flags, a collective every rank runs at the same
         step, so a True commits every rank to the same preemption save."""
-        if self.group is None:
+        if self.world_group is None:
             return stop_requested.is_set()
         if step % self.tcfg.preemption_sync_every_steps:
             return False
-        return any_across(stop_requested.is_set(), self.group)
+        return any_across(stop_requested.is_set(), self.world_group)
 
     def _preemption_exit(self, pending, epoch: int, batch_idx: int, step: int) -> None:
         """Save the completed step and leave; ``batch_idx`` already points
@@ -307,7 +335,7 @@ class Trainer:
                 source = pinned(source)  # pinned in the prefetch thread
             # one process: a stop also ends a blocked data wait; across
             # processes every rank must reach the agreed step, so it does not
-            local_stop = stop_requested if self.group is None else None
+            local_stop = stop_requested if self.world_group is None else None
             with contextlib.closing(prefetch(source, stop=local_stop)) as host, \
                     contextlib.closing(device_prefetch(host, self.device)) as on_device:
                 for batch in self._timed(on_device):
@@ -423,12 +451,13 @@ class Trainer:
                 self.writer.add_scalar("Logit bias", m["logit_bias"], s)
 
     def save(self, epoch: int, batch_idx: int) -> None:
-        """The lead writes the checkpoint; every rank then waits at a
-        barrier, so none reads a half-written step."""
+        """The lead writes the checkpoint (every rank its shards, when the
+        state is split); every rank then waits at a barrier, so none reads a
+        half-written step."""
         t0 = time.perf_counter()
         self.checkpointer.save(self.state, epoch=epoch, step=batch_idx)
-        if self.group is not None:
-            barrier(self.group)
+        if self.world_group is not None:
+            barrier(self.world_group)
         self._saved_step = self.state.step
         self.timings["save_s"].append(time.perf_counter() - t0)
         self.timings["save_bytes"].append(self.checkpointer.last_save_bytes)
@@ -440,29 +469,43 @@ class Trainer:
         optimiser state too and are not what serving loads. With
         ``tcfg.freeze_serving`` the export also gets the frozen serving
         programs (``aot.freeze_programs``), which ``aot.load_servable``
-        feeds the exported weights."""
+        feeds the exported weights. A split state is gathered by every
+        rank first; the lead then records the programs of a whole model
+        built from the export's weights."""
         path = path or os.path.join(self.run_dir, "export")
         t0 = time.perf_counter()
+        params = self._host_params() if self.is_lead or self.sharded else None
         if self.is_lead:  # the replicas are alike: one writes, the others wait
-            save_pretrained(self._host_params(), self.cfg, path)
+            save_pretrained(params, self.cfg, path)
             if self.tcfg.freeze_serving:
                 from clip_mixer_tpu_torch.aot import freeze_programs
 
-                freeze_programs(self.state.model, path)
-        if self.group is not None:
-            barrier(self.group)
+                model = self.state.model
+                if self.sharded:
+                    model = CLIP(self.cfg, device=self.device)
+                    model.load_state_dict(params)
+                freeze_programs(model, path)
+        if self.world_group is not None:
+            barrier(self.world_group)
         self.timings["export_s"] = time.perf_counter() - t0
         return path
 
     def _host_params(self) -> dict:
         """The evaluation weights on the host: the EMA when
         ``tcfg.ema_decay`` is set (validation and the export see the
-        average; the raw parameters train on), else the live ones."""
-        sd = {k: v.detach().cpu() for k, v in self.state.model.state_dict().items()}
-        ema = self.state.opt_state.ema
-        if self.tcfg.ema_decay and ema is not None:
-            sd.update({k: v.detach().cpu() for k, v in ema.items()})
-        return sd
+        average; the raw parameters train on), else the live ones. A split
+        state is gathered whole (a collective: every rank calls this)."""
+        model, ema = self.state.model, self.state.opt_state.ema
+        use_ema = self.tcfg.ema_decay and ema is not None
+        if self.sharded:
+            sd = gather_full(model)
+            if use_ema:
+                sd.update(gather_full(model, ema))
+        else:
+            sd = dict(model.state_dict())
+            if use_ema:
+                sd.update(ema)
+        return {k: v.detach().cpu() for k, v in sd.items()}
 
     def validate(self, step: int) -> None:
         """Run every validator on the host weights, on the lead (the other
@@ -470,8 +513,8 @@ class Trainer:
         ``timings["validate_s"]`` as ``(step, validator, s)``."""
         if not self.validators:
             return
+        params = self._host_params() if self.is_lead or self.sharded else None
         if self.is_lead:
-            params = self._host_params()
             for v in self.validators:
                 t0 = time.perf_counter()
                 v.validate(step, verbose=self.verbose, params=params)
@@ -479,5 +522,5 @@ class Trainer:
                 self.timings["validate_s"].append((step, type(v).__name__, s))
                 if self.verbose:
                     print(f"validate step {step}: {type(v).__name__} {s:.3f} s", flush=True)
-        if self.group is not None:
-            barrier(self.group)
+        if self.world_group is not None:
+            barrier(self.world_group)

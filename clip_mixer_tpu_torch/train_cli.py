@@ -19,7 +19,15 @@ Data-parallel runs start one process per card, told their rendezvous by
 card, gloo with ``--device cpu``. Each process reads
 ``--global-batch-size / N`` rows a step: its own shards of ``--data``
 (``n_hosts = N``, ``host_index = I``), or its rows of each synthetic global
-batch. Rank 0 writes the run's files.
+batch). Rank 0 writes the run's files.
+
+``--tensor-parallel N`` lays the processes out as a (world / N) data x N
+model mesh (``parallel/mesh.py``; an N that does not divide the world
+exits): the blocks' MLPs and attention heads are split over each model
+group (``parallel/tp.py``), and the ranks of one data row read the same
+rows. ``--fsdp`` shards the parameters and Adam's state over the data
+dimension (``parallel/fsdp.py``) and trains the exact global loss. Both
+need a process group (a world of one will do).
 
 Flags whose machinery is not ported yet exit with a message naming the
 ROADMAP item. A non-finite loss exits with code 13, as the JAX launcher's
@@ -32,6 +40,8 @@ Examples::
         --global-batch-size 256 --steps-per-epoch 50 --epochs 2 --run-name run1
     torchrun --nproc-per-node 8 -m clip_mixer_tpu_torch.train_cli --synthetic \\
         --global-batch-size 2048 --steps-per-epoch 50 --epochs 2 --run-name run8
+    torchrun --nproc-per-node 8 -m clip_mixer_tpu_torch.train_cli --synthetic --fsdp \\
+        --tensor-parallel 2 --global-batch-size 2048 --steps-per-epoch 50 --run-name fsdp_tp
 """
 
 from __future__ import annotations
@@ -67,15 +77,14 @@ from clip_mixer_tpu_torch.evals.validators import (
 from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.ops.augment import source_size
 from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed, rank_device
+from clip_mixer_tpu_torch.parallel.mesh import data_index, make_mesh
 from clip_mixer_tpu_torch.train.trainer import Trainer
 
 EXIT_NONFINITE = 13  # clip_mixer_tpu/launch.py:169
 
 # flag -> the ROADMAP.md item that ports its machinery
 NOT_PORTED = {
-    "--fsdp": "Slice F (item 16a, FSDP2)",
-    "--tensor-parallel": "Slice F (item 16b, DTensor)",
-    "--pipeline-stages": "Slice F (item 16b, GPipe)",
+    "--pipeline-stages": "Queue 1 item 16b, pipeline stages (GPipe)",
 }
 
 
@@ -104,8 +113,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--accum-steps", type=int, default=1, help="exact (GradCache) accumulation microbatches")
     p.add_argument("--max-inflight-steps", type=int, default=2,
                    help="dispatch depth: the host waits on the step this many back")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
-    p.add_argument("--tensor-parallel", type=int, default=1, help="not ported yet beyond 1")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: shard params + Adam moments over the data axis; trains with the exact global "
+                        "InfoNCE gradient; composes with --tensor-parallel (storage sharded over the full grid)")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="model-axis size: MLP hidden dims and attention heads split over this many processes; "
+                        "the mesh becomes (processes/N) data x N model")
     p.add_argument("--pipeline-stages", type=int, default=1, help="not ported yet beyond 1")
     p.add_argument("--pipeline-microbatches", type=int, default=8)
     p.add_argument("--cache-data", nargs="?", const=True, default=None, metavar="DIR",
@@ -142,14 +155,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """SystemExit for the first flag set whose machinery is not ported."""
-    given = {
-        "--fsdp": args.fsdp,
-        "--tensor-parallel": args.tensor_parallel > 1,
-        "--pipeline-stages": args.pipeline_stages > 1,
-    }
-    for flag, on in given.items():
-        if on:
-            raise SystemExit(f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, {NOT_PORTED[flag]}")
+    if args.pipeline_stages > 1:
+        flag = "--pipeline-stages"
+        raise SystemExit(f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, {NOT_PORTED[flag]}")
+    if args.tensor_parallel < 1:
+        raise SystemExit(f"--tensor-parallel must be >= 1, got {args.tensor_parallel}")
     if args.cache_data is not None and (args.synthetic or args.data is None):
         raise SystemExit("--cache-data needs --data (synthetic data is already RAM-speed)")
     launch = {"--coordinator": args.coordinator, "--num-processes": args.num_processes,
@@ -298,10 +308,28 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
 
 
+def build_mesh(args, device):
+    """The mesh of the run: None for one process without a group; else
+    (world / N) data x N model for ``--tensor-parallel N`` (train.py's
+    layout), refusing an N that does not divide the world. ``--fsdp`` and
+    ``--tensor-parallel`` need a process group."""
+    if not dist.is_initialized():
+        if args.fsdp or args.tensor_parallel > 1:
+            raise SystemExit("--fsdp and --tensor-parallel shard over a process group: launch under torchrun or "
+                             "with --coordinator / --num-processes / --process-id (a world of one will do)")
+        return None
+    n = dist.get_world_size()
+    if n % args.tensor_parallel:
+        raise SystemExit(f"--tensor-parallel {args.tensor_parallel} does not divide the {n} processes "
+                         "(stranded ranks / an empty mesh)")
+    return make_mesh(n_data=n // args.tensor_parallel, n_model=args.tensor_parallel, device=device)
+
+
 def run(args: argparse.Namespace) -> None:
     """One process's run, under a process group when one is up."""
-    n_hosts, host = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
     device = rank_device(args.device) if dist.is_initialized() else args.device
+    mesh = build_mesh(args, device)
+    host, n_hosts = data_index(mesh)  # the ranks of one data row read the same rows
     cfg = PRESETS[args.preset].replace(remat=not args.no_remat, remat_policy=args.remat_policy,
                                        fused_mlp=args.fused_mlp)
     if args.loss == "siglip":
@@ -329,6 +357,7 @@ def run(args: argparse.Namespace) -> None:
         freeze=args.freeze_tower,
         augment=args.augment,
         freeze_serving=args.freeze_serving,
+        fsdp=args.fsdp,
     )
     # with augmentation the source is larger and the step crops it back
     source_res = source_size(cfg.image_resolution) if args.augment else cfg.image_resolution
@@ -343,6 +372,7 @@ def run(args: argparse.Namespace) -> None:
         validators=build_validators(args, cfg, device),
         verbose=args.verbose,
         profile_steps=args.profile_steps,
+        mesh=mesh,
     )
     try:
         trainer.train()

@@ -10,6 +10,7 @@ device. The file imports no JAX, so it also runs where JAX is absent:
 
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -739,3 +740,115 @@ def test_world_one_dp_step_is_the_single_device_step_bit_for_bit(cuda, tmp_path,
         assert torch.equal(a, b)
     for k, v in runs["single"][1].items():
         assert torch.equal(runs["dp"][1][k], v), k
+
+
+@pytest.mark.parametrize("route", ["plain", "fused_mlp", "fused_block"])
+def test_world_one_fsdp_step_is_the_single_device_step_bit_for_bit(cuda, tmp_path, route):
+    """chip_smoke.py's 13a at a small width: in a world of one over NCCL the
+    FSDP step (augmentation and EMA on) gives the single-device step's
+    (``grad_through_gather``) losses and final parameters, Adam moments and
+    EMA bit for bit, launching its route's kernel once a block a step; the
+    block parameters are FSDP shards."""
+    import torch.distributed as dist
+
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed
+    from clip_mixer_tpu_torch.parallel.fsdp import apply_fsdp, gather_full, make_fsdp_train_step
+    from clip_mixer_tpu_torch.parallel.mesh import make_mesh
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = PRESETS["mixer-debug"].replace(vision_width=128, text_width=128, text_heads=2, compute_dtype="bfloat16",
+                                         fused_mlp=route == "fused_mlp")
+    tcfg = TrainConfig(augment=True, ema_decay=0.9, learning_rate=1e-3)
+    rng = np.random.default_rng(0)
+    batches = [{"images": torch.from_numpy(rng.integers(0, 256, (8, 40, 40, 3), dtype=np.uint8)).to(cuda),
+                "texts": torch.from_numpy(rng.integers(1, 400, (8, cfg.context_length)).astype(np.int32)).to(cuda)}
+               for _ in range(2)]
+    assert maybe_initialize_distributed(cuda, coordinator=f"file://{tmp_path / 'store'}", num_processes=1,
+                                        process_id=0, timeout_s=120)
+    try:
+        mesh = make_mesh(device=cuda)
+        runs = {}
+        for name in ("single", "fsdp"):
+            model = CLIP(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+            if route == "fused_block":
+                kmb.route_towers(model, True)
+            opt = make_optimizer(tcfg, total_steps=2)
+            if name == "fsdp":
+                apply_fsdp(model, mesh)
+                assert hasattr(model.visual.transformer.mixBlocks[0].channel_mix_seq.lin3.weight, "placements")
+                step = make_fsdp_train_step(cfg, tcfg, opt, mesh)
+            else:
+                step = make_train_step(cfg, tcfg, opt, grad_through_gather=True)
+            state = init_train_state(model, opt)
+            counter = {"fused_mlp": ln_mlp, "fused_block": fused_mixer_block_tbd}.get(route)
+            before = None if counter is None else counter.launches
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(m["loss"].detach().clone())
+            if counter is not None:
+                assert counter.launches - before == 2 * (cfg.vision_layers + cfg.text_layers)
+            opt_state = state.opt_state
+            runs[name] = (losses, {**gather_full(model), **{f"mu.{k}": v for k, v in opt_state.mu.items()},
+                                   **{f"ema.{k}": v for k, v in gather_full(model, opt_state.ema).items()}})
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(runs["fsdp"][0], runs["single"][0]):
+        assert torch.equal(a, b)
+    for k, v in runs["single"][1].items():
+        assert torch.equal(runs["fsdp"][1][k], v), k
+
+
+def test_sharded_checkpoint_round_trip(cuda, tmp_path):
+    """A FSDP state on the card saved by every rank (a world of one:
+    ``shard-0.pt`` and ``layout.json``) and restored into a fresh sharded
+    state: the next step is bit for bit the uninterrupted one's; a whole
+    (replicated) state refuses the sharded checkpoint."""
+    import torch.distributed as dist
+
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed
+    from clip_mixer_tpu_torch.parallel.fsdp import apply_fsdp, gather_full, make_fsdp_train_step
+    from clip_mixer_tpu_torch.parallel.mesh import make_mesh
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state
+    from clip_mixer_tpu_torch.train.checkpoint import Checkpointer
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = PRESETS["mixer-debug"].replace(vision_width=128, text_width=128, text_heads=2, compute_dtype="bfloat16")
+    tcfg = TrainConfig(ema_decay=0.9, learning_rate=1e-3)
+    rng = np.random.default_rng(1)
+    batches = [{"images": torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)).to(cuda),
+                "texts": torch.from_numpy(rng.integers(1, 400, (8, cfg.context_length)).astype(np.int32)).to(cuda)}
+               for _ in range(2)]
+    assert maybe_initialize_distributed(cuda, coordinator=f"file://{tmp_path / 'store'}", num_processes=1,
+                                        process_id=0, timeout_s=120)
+    try:
+        mesh = make_mesh(device=cuda)
+
+        def fresh(seed):
+            model = apply_fsdp(CLIP(cfg, device=cuda, generator=torch.Generator().manual_seed(seed)), mesh)
+            opt = make_optimizer(tcfg, total_steps=2)
+            return init_train_state(model, opt), make_fsdp_train_step(cfg, tcfg, opt, mesh)
+
+        state, step = fresh(0)
+        state, _ = step(state, batches[0])
+        ck = Checkpointer(str(tmp_path / "ck"), group=dist.group.WORLD)
+        ck.save(state, epoch=0, step=1)
+        assert sorted(os.listdir(tmp_path / "ck" / "1")) == ["layout.json", "meta.json", "shard-0.pt"]
+        state, m_a = step(state, batches[1])
+        restored, step_b = fresh(5)
+        restored, epoch, batch_idx = ck.restore(restored)
+        assert (epoch, batch_idx, restored.step) == (0, 1, 1)
+        restored, m_b = step_b(restored, batches[1])
+        assert torch.equal(m_a["loss"], m_b["loss"])
+        a, b = gather_full(state.model), gather_full(restored.model)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        whole = CLIP(cfg, device=cuda)
+        with pytest.raises(ValueError, match="layout it was saved in"):
+            ck.restore(init_train_state(whole, make_optimizer(tcfg, total_steps=2)))
+    finally:
+        dist.destroy_process_group()

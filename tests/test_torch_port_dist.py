@@ -86,12 +86,33 @@ def test_explicit_rendezvous_needs_all_three(clean_env):
     assert not dist.is_initialized()
 
 
+def test_rank_device_maps_local_rank_and_refuses_one_card_for_many(clean_env):
+    """A bare ``cuda`` is the card LOCAL_RANK names; an indexed ``cuda:N``
+    in a world of more than one rank, which would bind every rank to one
+    card, is refused; a world of one keeps it. No card is needed: devices
+    are only named."""
+    with clean_env.context() as m:  # a group stands in: the mapping needs no collective
+        m.setattr(tdist.dist, "is_initialized", lambda: True)
+        m.setattr(tdist.dist, "get_rank", lambda: 3)
+        m.setenv("LOCAL_RANK", "1")
+        for n in (1, 4):
+            m.setattr(tdist.dist, "get_world_size", lambda n=n: n)
+            assert tdist.rank_device("cuda") == torch.device("cuda", 1)
+            assert tdist.rank_device("cpu") == torch.device("cpu")
+        with pytest.raises(ValueError, match="names one card for all 4 ranks"):
+            tdist.rank_device("cuda:0")
+        m.setattr(tdist.dist, "get_world_size", lambda: 1)
+        assert tdist.rank_device("cuda:0") == torch.device("cuda", 0)
+
+
 def test_mesh_refuses_tensor_parallel_and_stranded_ranks(world1):
     mesh = tmesh.make_mesh(device="cpu")
     assert mesh.mesh_dim_names == ("data", "model") and tuple(mesh.shape) == (1, 1)
     assert dist.get_world_size(tmesh.data_group(mesh)) == 1
     assert tmesh.data_group(None) is None
-    with pytest.raises(NotImplementedError, match="item 16b"):
+    assert tmesh.model_group(mesh) is None and tmesh.data_index(mesh) == (0, 1)
+    # a model dimension is taken; one that does not divide the ranks strands them
+    with pytest.raises(ValueError, match="not divisible by n_model=2"):
         tmesh.make_mesh(n_model=2, device="cpu")
     with pytest.raises(ValueError, match="does not cover"):
         tmesh.make_mesh(n_data=2, device="cpu")

@@ -73,9 +73,29 @@ LAUNCH = {
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED))
 def test_each_unported_flag_exits_with_its_roadmap_item(flag):
-    with pytest.raises(SystemExit, match=f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, "):
+    """--pipeline-stages is not ported and names its ROADMAP item. --fsdp and
+    --tensor-parallel are (tests/test_torch_port_fsdp.py trains with both in
+    a world of 4); in one process without a group they exit before anything
+    starts, naming the launch they need."""
+    if flag == "--pipeline-stages":
+        match = f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, Queue 1 item 16b, pipeline"
+    else:
+        match = "--fsdp and --tensor-parallel shard over a process group: launch under torchrun"
+    with pytest.raises(SystemExit, match=match):
         train_cli.main(RUN + UNPORTED[flag])
     assert not os.path.exists("outputs")
+
+
+def test_tensor_parallel_must_divide_the_world(monkeypatch):
+    """train.py's mesh rule: an N that does not divide the processes exits."""
+    args = train_cli.parse_args(RUN + ["--tensor-parallel", "3"])
+    monkeypatch.setattr(train_cli.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(train_cli.dist, "get_world_size", lambda: 4)
+    with pytest.raises(SystemExit, match="--tensor-parallel 3 does not divide the 4 processes"):
+        train_cli.build_mesh(args, "cpu")
+    with pytest.raises(SystemExit, match="--tensor-parallel must be >= 1"):
+        train_cli.main(RUN + ["--tensor-parallel", "0"])
+    assert train_cli.NOT_PORTED == {"--pipeline-stages": "Queue 1 item 16b, pipeline stages (GPipe)"}
 
 
 @pytest.mark.parametrize("flag", sorted(LAUNCH))

@@ -377,8 +377,11 @@ def test_trainer_refuses_what_it_cannot_run(tmp_path):
     tr = Trainer(small_vocab, _tcfg(), _source(), str(tmp_path / "v"), device="cpu")
     with pytest.raises(ValueError, match="token id 511 >= vocab_size 256"):
         tr.train()
-    with pytest.raises(ValueError, match="not ported yet"):
+    # FSDP shards over a mesh: one process without a group has none
+    with pytest.raises(ValueError, match="TrainConfig.fsdp shards over a mesh"):
         Trainer(SMALL, _tcfg(fsdp=True), _source(), str(tmp_path / "w"), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Trainer(SMALL.replace(pipeline_stages=2), _tcfg(fsdp=True), _source(), str(tmp_path / "w"), device="cpu")
     with pytest.raises(ValueError, match="local directory"):
         Trainer(SMALL, _tcfg(), _source(), "gs://bucket/run", device="cpu")
 

@@ -287,8 +287,129 @@ def _tar_step(rank, n, p):
             "loss": float(m["loss"])}
 
 
+def _sharded_run(rank, n, case):
+    """One case of the sharded steps (tensor parallelism over a model
+    dimension of ``case["n_model"]``, FSDP when ``case["fsdp"]``): three
+    steps from the payload's weights on this rank's data row of the global
+    batches. Returns the metrics, the gathered whole state and EMA (rank 0),
+    their hash, each parameter's local shape and FSDP placement, and (with
+    ``grads``) this rank's local gradients after the last step."""
+    from clip_mixer_tpu_torch import config as tcfg
+    from clip_mixer_tpu_torch.models.clip import CLIP
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.parallel import fsdp as tfsdp
+    from clip_mixer_tpu_torch.parallel import tp as ttp
+    from clip_mixer_tpu_torch.parallel import train_step as tstep
+    from clip_mixer_tpu_torch.parallel.mesh import data_group, make_mesh, model_group, replicate, shard_batch
+    from clip_mixer_tpu_torch.train.optimizer import local, make_optimizer
+
+    cfg = tcfg.CLIPConfig(**case["model"])
+    if case.get("siglip"):
+        cfg = cfg.for_siglip()
+    tc = tcfg.TrainConfig(**case["train"])
+    n_model = case.get("n_model", 1)
+    mesh = make_mesh(n_data=n // n_model, n_model=n_model, device="cpu")
+    model = CLIP(cfg, device="cpu", generator=torch.Generator().manual_seed(100 + rank))  # differs by rank
+    if rank == 0:
+        model.load_state_dict(case["init"])
+    replicate(_group(), model)
+    if case.get("fused_block"):
+        route_towers(model, True)
+    if n_model > 1:
+        ttp.shard_model_tp(model, model_group(mesh))
+    if case.get("fsdp"):
+        tfsdp.apply_fsdp(model, mesh)
+    saved = {}
+    if case.get("fault") == "f_psum_no_allreduce":
+        saved["f"] = ttp._FPsum.backward
+        ttp._FPsum.backward = staticmethod(lambda ctx, g: (g, None))
+    if case.get("fault") == "logit_scale_unreduced":
+        saved["avg"] = tstep.average_gradients
+        tstep.average_gradients = lambda params, loss, g: saved["avg"](
+            {k: v for k, v in params.items() if k != "logit_scale"}, loss, g)
+    try:
+        opt = make_optimizer(tc, total_steps=case["total_steps"])
+        state = tstep.init_train_state(model, opt)
+        if case.get("fsdp"):
+            step = tfsdp.make_fsdp_train_step(cfg, tc, opt, mesh, **case.get("step", {}))
+        else:
+            step = tstep.make_train_step(cfg, tc, opt, group=data_group(mesh), **case.get("step", {}))
+        metrics = []
+        for batch in case["batches"]:
+            state, m = step(state, shard_batch(data_group(mesh), batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        if "f" in saved:
+            ttp._FPsum.backward = saved["f"]
+        if "avg" in saved:
+            tstep.average_gradients = saved["avg"]
+    whole = {k: v.clone() for k, v in tfsdp.gather_full(model).items()}
+    ema = state.opt_state.ema
+    ema = None if ema is None else {k: v.clone() for k, v in tfsdp.gather_full(model, ema).items()}
+    params = dict(model.named_parameters())
+    out = {"metrics": metrics, "hash": state_hash(whole), "ema_hash": None if ema is None else state_hash(ema),
+           "shapes": {k: tuple(local(p).shape) for k, p in params.items()},
+           "fsdp_dims": {k: p.placements[0].dim for k, p in params.items() if hasattr(p, "placements")},
+           "moment_shapes": {k: tuple(v.shape) for k, v in state.opt_state.mu.items()}}
+    if case.get("grads"):
+        out["grads"] = {k: local(p.grad).clone() for k, p in params.items() if p.grad is not None}
+        out["grad_kinds"] = {k: type(p.grad).__name__ for k, p in params.items() if p.grad is not None}
+    if rank == 0:
+        out["state"], out["ema"] = whole, ema
+    return out
+
+
+def _sharded_steps(rank, n, p):
+    return {name: _sharded_run(rank, n, case) for name, case in p.items()}
+
+
+def _sharded_trainer(rank, n, p):
+    """``train_cli`` in each rank (the process group is up already) with
+    ``p["flags"]``: run "straight" through, run "resumed" crashed by the
+    drill after a save and resumed; both runs' last checkpoint shard of this
+    rank and the export compared bit for bit. Then a restore of the
+    straight run's checkpoint in another layout (``p["other_flags"]``)."""
+    from clip_mixer_tpu_torch import train_cli
+
+    base = p["argv"] + p["flags"]
+    out = {}
+    train_cli.main(base + ["--run-name", "straight"])
+    try:
+        train_cli.main(base + ["--run-name", "resumed", "--crash-after-steps", str(p["crash"])])
+    except RuntimeError as e:
+        assert "fault injection" in str(e), e
+    else:
+        raise AssertionError("the crash drill did not raise")
+    out["after_crash"] = sorted(os.listdir(os.path.join("outputs", "resumed", "checkpoints")))
+    train_cli.main(base + ["--run-name", "resumed"])
+    runs = {r: os.path.join("outputs", r) for r in ("straight", "resumed")}
+    out["checkpoints"] = {r: sorted(os.listdir(os.path.join(d, "checkpoints"))) for r, d in runs.items()}
+    last = out["checkpoints"]["straight"][-1]
+    out["files"] = sorted(os.listdir(os.path.join(runs["straight"], "checkpoints", last)))
+    shard = [torch.load(os.path.join(d, "checkpoints", last, f"shard-{rank}.pt"), weights_only=True)
+             for d in runs.values()]
+    flat = [{**{f"model.{k}": v for k, v in s["model"].items()},
+             **{f"{w}.{k}": v for w in ("mu", "nu") for k, v in s["opt_state"][w].items()}} for s in shard]
+    out["shard_hashes"] = [state_hash(f) for f in flat]
+    out["shard_steps"] = [s["step"] for s in shard]
+    exports = [torch.load(os.path.join(d, "export", "model.pt"), weights_only=True) for d in runs.values()]
+    out["export_hashes"] = [state_hash(e) for e in exports]
+    out["export_shapes"] = {k: tuple(v.shape) for k, v in exports[0].items()}
+    try:
+        train_cli.main(p["argv"] + p["other_flags"] + ["--run-name", "straight", "--epochs", "2"])
+    except ValueError as e:
+        out["refusal"] = str(e)
+    train_cli.main(p["argv"] + p["other_flags"] + ["--run-name", "other"])  # that layout, straight through
+    other = os.path.join("outputs", "other")
+    out["other_files"] = sorted(os.listdir(os.path.join(other, "checkpoints", last)))
+    out["other_export_shapes"] = {k: tuple(v.shape) for k, v in torch.load(
+        os.path.join(other, "export", "model.pt"), weights_only=True).items()}
+    return out
+
+
 TASKS = {"losses": _losses, "moments": _moments, "dp_steps": _dp_steps, "trainer_resume": _trainer_resume,
-         "trainer_sigterm": _trainer_sigterm, "tar_step": _tar_step}
+         "trainer_sigterm": _trainer_sigterm, "tar_step": _tar_step, "sharded_steps": _sharded_steps,
+         "sharded_trainer": _sharded_trainer}
 
 
 def _main(argv):
