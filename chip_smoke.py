@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
 its model loading, its serving CLI, its evals, its real-data sources, its frozen serving programs, its
-release, its C++ tokenizer and its data-parallel layer on one CUDA card and check its kernels.
+release, its C++ tokenizer, its data-parallel, sharded and pipelined training and its operations tools on one
+CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -302,6 +303,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    --fsdp`` in a world of one: a run straight through, one stopped by the
    drill after its save at step 2 and resumed; the two last sharded
    checkpoints bit for bit; seconds to the first step.
+14. Pipeline stages and the operations tools, a world of one over NCCL.
+   14a: full-width Mixer-B/32 (bf16, f32 masters, seed 0) at B = 256 on
+   each route, with every launch counter set to 0 first: the GPipe step
+   (``parallel/pp.py``, a (1, 1) (data, stage) mesh: the towers through
+   ``pipeline_tower``) with 1 microbatch, 2 steps bit for bit the
+   single-device step (the loss, every gradient of step 1, and every
+   parameter and Adam moment after), and with 8 microbatches within
+   PP_LOSS_TOL / PP_NORM_TOL / PP_GRAD_TOL of it at step 1, which two
+   planted faults that stay finite must fail (microbatch 0's cotangent
+   dropped: the gradient and norm limits; microbatch 1 fed twice in place
+   of microbatch 0: the loss limit); 24 x
+   n_micro ``ln_mlp`` or ``fused_mixer_block`` launches a step on their
+   routes; step ms of the three in turns (``utils/profiling.py``'s
+   ``chained_train_time``, CUDA events) and each one's peak memory alone.
+   14b: ``scripts/torch_supervise.py`` runs ``train_cli`` (Mixer-B/32) with
+   the crash drill: the child dies after step 3, is restarted once,
+   resumes from its checkpoint at step 2 and exits 0. 14c:
+   ``utils/memory.plan`` for the cases of phases 4 and 14a beside their
+   peaks, and the ratio. 14d (beside 14b): ``scripts/torch_preflight.py
+   --preset mixer-b32 --devices 1 --global-batch 256 --hbm-gib 80`` exits 0
+   and names the card.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -4783,6 +4805,327 @@ def shard_path(dev, counters):
     return out
 
 
+# ---- phase 14: pipeline stages and the operations tools ---------------------
+
+PP_B = 256  # 14a's batch
+PP_MICRO = 8  # 14a's microbatches, beside 1
+PP_STEPS = 2  # 14a: the checked steps of each model
+PP_CHAIN = (1, 3)  # 14a: chained_train_time's chain lengths, in two turns
+# n_micro = 8 against the single step at step 1, each limit between the
+# sound routes' largest reading and a planted fault's (pp_faults)
+PP_LOSS_TOL = 1e-5  # |dloss| / loss: read 0 (a microbatch's forward is row for row the batch's)
+PP_NORM_TOL = 1e-4  # |d grad_norm| / grad_norm: read at most 1.4e-5
+PP_GRAD_TOL = 2e-2  # each parameter's gradient, relative Frobenius (NULL_GRAD as phase 4): read at most 5.7e-3
+SUPERVISE_ARGS = ["--synthetic", "--preset", "mixer-b32", "--no-validators", "--epochs", "1",
+                  "--global-batch-size", "32", "--steps-per-epoch", "4", "--checkpoint-every", "2",
+                  "--crash-after-steps", "3"]
+SUPERVISE_TIMEOUT_S = 300
+PREFLIGHT_ARGS = ["--preset", "mixer-b32", "--devices", "1", "--global-batch", "256", "--hbm-gib", "80"]
+
+
+def state_bytes(state) -> int:
+    """The bytes a train state holds on the card: parameters, gradients,
+    Adam's moments and the EMA."""
+    params = list(state.model.parameters())
+    opt = state.opt_state
+    ts = params + [p.grad for p in params if p.grad is not None] + list(opt.mu.values()) + \
+        list(opt.nu.values()) + list((opt.ema or {}).values())
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def pp_bound(got, want, grads_got, grads_want):
+    """The n_micro = 8 step against the single one at step 1: the loss and
+    gradient-norm relative gaps, the worst parameter's relative Frobenius
+    gap (NULL_GRAD apart, as phase 4), and whether all hold."""
+    loss_rel = abs(float(got["loss"]) - float(want["loss"])) / float(want["loss"])
+    norm_rel = abs(float(got["grad_norm"]) - float(want["grad_norm"])) / float(want["grad_norm"])
+    errs, null = grad_agreement(grads_got, grads_want)
+    worst = max(errs, key=errs.get)
+    worst_null = max(null, key=null.get)
+    out = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_rel_max": errs[worst], "grad_rel_max_param": worst,
+           "null_grad_ratio_max": null[worst_null]}
+    out["holds"] = (loss_rel <= PP_LOSS_TOL and norm_rel <= PP_NORM_TOL and errs[worst] <= PP_GRAD_TOL
+                    and null[worst_null] <= NULL_GRAD_RATIO)
+    return out
+
+
+def pp_faults(pp):
+    """14a's planted faults, each a stand-in for ``pp.pipeline_tower`` that
+    stays finite (a zero microbatch turns every number NaN, which fails any
+    limit and so shows none of them able to catch anything), with the limit
+    each must fail. ``drop_cotangent``: microbatch 0 collected detached, so
+    the forward is the same bits and its share of the gradient is lost.
+    ``feed_twice``: stage 0 feeds microbatch 1 at tick 0 as well, so
+    microbatch 0 is never run and microbatch 1 counts twice. (Swapping two
+    collected slots is no fault: both towers swap the same rows, and the
+    contrastive loss does not see the order of its pairs.)"""
+    real = pp.pipeline_tower
+
+    def drop_cotangent(x, stage_fn, pipe):
+        out = real(x, stage_fn, pipe)
+        b = x.shape[0] // pipe.n_micro
+        return torch.cat([out[:b].detach(), out[b:]])
+
+    def feed_twice(x, stage_fn, pipe):
+        b = x.shape[0] // pipe.n_micro
+        return real(torch.cat([x[b:2 * b], x[b:]]), stage_fn, pipe)
+
+    return {"drop_cotangent": (drop_cotangent, ("grad_rel_max", "grad_norm_rel")),
+            "feed_twice": (feed_twice, ("loss_rel",))}
+
+
+def pp_route(dev, counters, mesh, route, batches):
+    """14a on one route: the single-device step, the GPipe step with 1 and
+    with PP_MICRO microbatches, each on its own CLIP from seed 0, PP_STEPS
+    checked steps in turns, then each timed in two turns; on the plain route
+    also the planted faults. Returns the readings and the launches of the
+    checked GPipe steps."""
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+    from clip_mixer_tpu_torch.config import TrainConfig
+    from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers
+    from clip_mixer_tpu_torch.parallel import pp
+    from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+    from clip_mixer_tpu_torch.utils.profiling import chained_train_time
+
+    cfg = PRESETS["mixer-b32"].replace(fused_mlp=route == "fused_mlp")
+    tcfg = TrainConfig()
+    blocks = cfg.vision_layers + cfg.text_layers
+    kernel = {"fused_mlp": "ln_mlp", "fused_block": "fused_mixer_block"}.get(route)
+
+    def build(n_micro):
+        model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        if route == "fused_block":
+            route_towers(model, True)
+        opt = make_optimizer(tcfg, total_steps=10)
+        if n_micro is None:
+            return init_train_state(model, opt), make_train_step(cfg, tcfg, opt)
+        pp.shard_model_pp(model, mesh)
+        return init_train_state(model, opt), pp.make_pp_train_step(cfg, tcfg, mesh, opt, n_micro)
+
+    micro = {"single": None, "pp1": 1, f"pp{PP_MICRO}": PP_MICRO}
+    runs = {name: build(n) for name, n in micro.items()}
+    free_card()
+    counters.reset()
+    launches = counters.read()
+    out = {name: {"losses": [], "grad_norms": [], "host_ms": [], "peak_alone_gb": []} for name in runs}
+    step1, grads1 = {}, {}
+    for i, batch in enumerate(batches):
+        for name, (state, step) in runs.items():
+            own = state_bytes(state)
+            torch.cuda.synchronize()
+            others = torch.cuda.memory_allocated() - own
+            torch.cuda.reset_peak_memory_stats()
+            before = counters.read()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            out[name]["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            out[name]["peak_alone_gb"].append((torch.cuda.max_memory_allocated() - others) / 1e9)
+            n_micro = micro[name]
+            want = {k: (blocks * (n_micro or 1) if k == kernel else 0) for k in before}
+            now = expect(counters, before, f"14a {route} {name} step {i + 1}", **want)
+            if n_micro:
+                launches = {k: v + now[k] - before[k] for k, v in launches.items()}
+            require(bool(torch.isfinite(m["loss"])), f"14a {route} {name} step {i + 1}: loss {float(m['loss'])}")
+            out[name]["losses"].append(float(m["loss"]))
+            out[name]["grad_norms"].append(float(m["grad_norm"]))
+            if i == 0:
+                step1[name] = {k: v.detach().clone() for k, v in m.items()}
+                grads1[name] = {n: p.grad.detach().float().clone() for n, p in state.model.named_parameters()}
+        if i == 0:
+            for k in ("loss", "grad_norm"):
+                require(torch.equal(step1["single"][k], step1["pp1"][k]),
+                        f"14a {route} pp1 step 1 {k}: {float(step1['pp1'][k])}, single {float(step1['single'][k])}")
+            same_bits(grads1["pp1"], grads1["single"], f"14a {route} pp1 step-1 gradients")
+            bound = pp_bound(step1[f"pp{PP_MICRO}"], step1["single"], grads1[f"pp{PP_MICRO}"], grads1["single"])
+            out[f"pp{PP_MICRO}"]["step1_vs_single"] = bound
+            require(bound["holds"], f"14a {route} pp{PP_MICRO} step 1 against the single step: {bound}")
+            grads1 = {"single": grads1["single"]}  # kept for the planted fault
+    require(out["pp1"]["losses"] == out["single"]["losses"], f"14a {route} pp1 losses {out['pp1']['losses']}")
+    same_bits(train_state_tensors(runs["pp1"][0]), train_state_tensors(runs["single"][0]),
+              f"14a {route} pp1 state after {len(batches)} steps")
+    out["pp1"]["bit_for_bit"] = True
+    if route == "plain":
+        limits = {"loss_rel": PP_LOSS_TOL, "grad_norm_rel": PP_NORM_TOL, "grad_rel_max": PP_GRAD_TOL}
+        out["planted_faults"] = {}
+        for name, (fault_fn, must_fail) in pp_faults(pp).items():
+            state, step = build(PP_MICRO)
+            real = pp.pipeline_tower
+            pp.pipeline_tower = fault_fn  # the towers import it at each call
+            try:
+                state, m = step(state, batches[0])
+            finally:
+                pp.pipeline_tower = real
+            grads = {n: p.grad.detach().float() for n, p in state.model.named_parameters()}
+            fault = pp_bound(m, step1["single"], grads, grads1["single"])
+            out["planted_faults"][name] = fault
+            require(all(np.isfinite(fault[k]) for k in limits), f"14a: the planted fault {name} is not finite: {fault}")
+            require(all(fault[k] > limits[k] for k in must_fail),
+                    f"14a: the planted fault {name} passed the limits on {must_fail}: {fault}")
+            del state, step, grads
+    del grads1
+    for turn in range(2):  # step ms in turns, the state threading through each chain
+        for name, (state, step) in runs.items():
+            # each model has just run its checked steps: no warm-up chain
+            ms = chained_train_time(step, state, batches[turn % len(batches)], *PP_CHAIN, device=dev, warmup=0) * 1e3
+            out[name].setdefault("step_ms", []).append(ms)
+    del runs
+    free_card()
+    return out, launches
+
+
+def supervise_drill():
+    """14b: ``scripts/torch_supervise.py --max-restarts 1 --backoff 0 --``
+    ``train_cli`` (full-width Mixer-B/32, SUPERVISE_ARGS): the drill crashes
+    the child after step 3, the supervisor restarts it once, it resumes from
+    its checkpoint at step 2 and exits 0, saved at step 4 and exported, each
+    step's loss written once. Returns the seconds and the launches counted."""
+    import shutil
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_supervise_")
+    argv = [sys.executable, os.path.join(repo, "scripts", "torch_supervise.py"), "--max-restarts", "1", "--backoff",
+            "0", "--", *SUPERVISE_ARGS, *DP_CLI_DEVICE, "--run-name", "drill"]
+    out = {"argv": SUPERVISE_ARGS}
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=root, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
+                              timeout=SUPERVISE_TIMEOUT_S)
+        out["s"] = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        require(proc.returncode == 0, f"14b: the supervisor exited {proc.returncode}: {text[-3000:]}")
+        restarts = [line for line in proc.stdout.splitlines() if "restarting in" in line]
+        require(len(restarts) == 1 and "progressed=True" in restarts[0] and "fault injection" in text,
+                f"14b: restarts {restarts}: {text[-3000:]}")
+        require("run complete after 2 launch(es)" in proc.stdout, f"14b: {proc.stdout[-2000:]}")
+        run = os.path.join(root, "outputs", "drill")
+        ckpts = sorted(int(e) for e in os.listdir(os.path.join(run, "checkpoints")) if e.isdigit())
+        require(ckpts[-1] == 4 and os.path.exists(os.path.join(run, "export", "model.pt")), f"14b: {ckpts}")
+        with open(os.path.join(run, "runs", "metrics.jsonl")) as f:
+            steps = [r["step"] for r in map(json.loads, f) if r["name"] == "Loss"]
+        require(sorted(steps) == [1, 2, 3, 4], f"14b: loss steps {steps}")
+        out.update(restarts=len(restarts), checkpoints=ckpts, restart_line=restarts[0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 14b: {out}")
+    return out
+
+
+def plan_vs_peak(train, routes):
+    """14c: ``utils/memory.plan`` (one card, JAX's activation model) for
+    phase 4's cases beside their peaks (less what earlier phases left
+    allocated), and for 14a's steps beside each one's peak alone; the ratio
+    plan / measured."""
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.utils.memory import plan
+
+    base = PRESETS["mixer-b32"]
+    cases = []
+    if train is not None:
+        at_start = train["allocated_at_start_gb"]
+        phase4 = [("plain", base, TRAIN_B, 1), ("fused_mlp", base.replace(fused_mlp=True), TRAIN_B, 1),
+                  ("fused_block", base, TRAIN_B, 1), (f"gradcache_accum{GRADCACHE_ACCUM}", base, TRAIN_B,
+                                                      GRADCACHE_ACCUM)]
+        phase4 += [(f"plain_remat_{p}_B{TRAIN_B}", base.replace(remat=True, remat_policy=p), TRAIN_B, 1)
+                   for p in REMAT_POLICIES]
+        phase4 += [(f"fused_mlp_remat_B{BIG_B}", base.replace(fused_mlp=True, remat=True), BIG_B, 1),
+                   (f"plain_accum{BIG_ACCUM}_B{BIG_B}", base, BIG_B, BIG_ACCUM)]
+        for key, cfg, B, accum in phase4:
+            cases.append((f"phase4 {key}", plan(cfg, "dp", 1, B, accum_steps=accum),
+                          train[key]["peak_mem_gb"] - at_start))
+    for route, r in routes.items():
+        cfg = base.replace(fused_mlp=route == "fused_mlp")
+        for name in r:
+            if name.startswith(("single", "pp")):
+                mode = "dp" if name == "single" else "pp"
+                cases.append((f"14a {route} {name}", plan(cfg, mode, 1, PP_B), max(r[name]["peak_alone_gb"])))
+    out = []
+    for what, pl, measured in cases:
+        out.append({"case": what, "plan_gb": pl.total_bytes / 1e9, "plan_act_gb": pl.act_bytes / 1e9,
+                    "measured_gb": measured, "plan_over_measured": pl.total_bytes / 1e9 / measured})
+        log(f"phase 14c {what}: plan {pl.total_bytes / 1e9:.2f} GB (acts {pl.act_bytes / 1e9:.2f}), "
+            f"measured {measured:.2f} GB, ratio {out[-1]['plan_over_measured']:.3f}")
+    return out
+
+
+def preflight_start():
+    """14d, started: ``scripts/torch_preflight.py`` on the card in a
+    subprocess (it runs beside 14b's supervisor: neither is timed against
+    the other). Returns what :func:`preflight_finish` reads."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(repo, "build", f"chip_smoke_preflight_{os.getpid()}.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, os.path.join(repo, "scripts", "torch_preflight.py"), *PREFLIGHT_ARGS],
+                                cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=logf,
+                                stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter(), log_path
+
+
+def preflight_finish(proc, t0, log_path):
+    """14d: the preflight exited 0 (GO) and its device probe names the card."""
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    with open(log_path) as f:
+        report = f.read().strip().splitlines()
+    os.remove(log_path)
+    out = {"s": time.perf_counter() - t0, "rc": rc, "report": report}
+    require(rc == 0, f"14d: preflight exited {rc}: {report[-20:]}")
+    name = torch.cuda.get_device_name(0)
+    require(any(line.startswith("[PASS] device") and name in line for line in report),
+            f"14d: the device probe does not name {name}: {report}")
+    log(f"phase 14d: {out}")
+    return out
+
+
+def pp_path(dev, counters, train):
+    """Phase 14: pipeline stages (14a, a world of one over NCCL) and the
+    operations tools (14b-d); ``train``: phase 4's summary (None when phase
+    4 did not run)."""
+    import torch.distributed as dist
+
+    from clip_mixer_tpu_torch import PRESETS
+    from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed
+    from clip_mixer_tpu_torch.parallel.pp import make_pp_mesh
+
+    t_phase = time.perf_counter()
+    require(not dist.is_initialized(), "a process group is already up")
+    require(maybe_initialize_distributed(dev, coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                                         process_id=0, timeout_s=300), "init_process_group")
+    out = {"B": PP_B, "n_micro": [1, PP_MICRO], "routes": {},
+           "tol": f"n_micro={PP_MICRO} against the single step at step 1: loss <= {PP_LOSS_TOL}, gradient norm <= "
+                  f"{PP_NORM_TOL} relative, each gradient <= {PP_GRAD_TOL} relative Frobenius but the token-mix "
+                  f"output biases (<= {NULL_GRAD_RATIO} of their lin2.weight's); n_micro=1 bit for bit"}
+    launches = dict.fromkeys(counters.read(), 0)
+    try:
+        mesh = make_pp_mesh(1, 1, device=dev)
+        out["backend"], out["world"] = dist.get_backend(), dist.get_world_size()
+        batches = [on_device(train_batch(PRESETS["mixer-b32"], PP_B, seed=s), dev) for s in (40, 41)][:PP_STEPS]
+        for route in ("plain", "fused_mlp", "fused_block"):
+            r, got = pp_route(dev, counters, mesh, route, batches)
+            out["routes"][route] = r
+            launches = {k: v + got[k] for k, v in launches.items()}
+            log(f"phase 14a {route}: step ms {[(k, v['step_ms']) for k, v in r.items() if 'step_ms' in v]}, "
+                f"peak alone GB {[(k, max(v['peak_alone_gb'])) for k, v in r.items() if 'peak_alone_gb' in v]}, "
+                f"pp{PP_MICRO} step 1 {r[f'pp{PP_MICRO}']['step1_vs_single']}")
+        del batches
+        free_card()
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = launches
+    out["a_s"] = time.perf_counter() - t_phase
+    preflight = preflight_start()
+    out["supervise"] = supervise_drill()
+    out["preflight"] = preflight_finish(*preflight)
+    out["memory_plan"] = plan_vs_peak(train, out["routes"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -4898,8 +5241,17 @@ def main() -> int:
     for row in kernels:  # each kernel's launches in phase 13's FSDP steps, added
         row["shard_launches"] = shard["launches"][row["name"]]
         row["launches"] += row["shard_launches"]
+    pipe = pp_path(dev, counters, train)
+    emit({"pp": {k: v for k, v in pipe.items() if k != "routes"}})
+    emit({"pp_routes": pipe["routes"]})
+    for name in ("ln_mlp", "fused_mixer_block"):
+        require(pipe["launches"][name] > 0, f"phase 14's GPipe steps never launched {name}")
+    for row in kernels:  # each kernel's launches in phase 14a's checked GPipe steps, added
+        row["pp_launches"] = pipe["launches"][row["name"]]
+        row["launches"] += row["pp_launches"]
     emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
-          "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"]})
+          "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"],
+          "pp_s": pipe["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

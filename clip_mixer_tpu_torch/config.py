@@ -4,8 +4,11 @@ Field-for-field copies of ``clip_mixer_tpu.config.CLIPConfig``, its
 ``PRESETS`` and ``TrainConfig`` (the port imports nothing of the JAX
 package). Fields that only the JAX package's multi-device paths read
 (``model_axis``, ``pipeline_*``, ``fsdp``, the preemption sync cadence, ...)
-are kept so a configuration moves between the two packages unchanged; the
-port refuses or ignores the ones it does not implement yet.
+are kept so a configuration moves between the two packages unchanged. A
+process group cannot live in a frozen config, so the port's layers read the
+group from the model instead: ``model_axis`` is a block's ``model_group``
+(``parallel/tp.py``), ``pipeline_axis`` / ``pipeline_stages`` /
+``pipeline_microbatches`` a tower's ``pipeline`` (``parallel/pp.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ class CLIPConfig:
     # (ops/kernels/ln_mlp.py).
     fused_mlp: bool = False
     model_axis: Optional[str] = None
+    # Pipeline-parallel mesh axis: tower block stacks run the GPipe
+    # fill-drain schedule over it with `pipeline_stages` ranks and
+    # `pipeline_microbatches` microbatches per step (parallel/pp.py).
     pipeline_axis: Optional[str] = None
     pipeline_stages: int = 0
     pipeline_microbatches: int = 1
@@ -199,9 +205,10 @@ class TrainConfig:
     ``aot.freeze_programs``) and, across processes,
     ``preemption_sync_every_steps`` (the cadence of the agreed stop) and
     ``fsdp`` (the parameters and optimiser state sharded over the mesh's
-    data dimension, ``parallel/fsdp.py``). ``pipeline_microbatches`` waits
-    for the pipelined step (ROADMAP.md, item 16b); it is carried and
-    validated as the JAX package validates it.
+    data dimension, ``parallel/fsdp.py``) and ``pipeline_microbatches`` (the
+    GPipe step's microbatches, when the trainer's mesh has a stage dimension
+    of more than one rank, ``parallel/pp.py``; keep it >= 4 x the stages:
+    the bubble is (S - 1) / (n_micro + S - 1)).
     """
 
     global_batch_size: int = 32768

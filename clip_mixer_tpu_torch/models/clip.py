@@ -32,7 +32,6 @@ from clip_mixer_tpu_torch.models.towers import (
     make_tower,
     make_visual,
     pool_text,
-    require_ported,
 )
 
 
@@ -51,7 +50,6 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, device: DeviceLike = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        require_ported(cfg)
         self.cfg = cfg
         width = cfg.text_width
         self.visual = make_visual(cfg)

@@ -31,7 +31,6 @@ from torch import nn
 from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.models.mixer import MixerBlock, MixerTower
-from clip_mixer_tpu_torch.models.towers import require_ported
 from clip_mixer_tpu_torch.ops.quant import QuantResNet, QuantTextTower, QuantVisionTower
 
 
@@ -123,7 +122,6 @@ def jax_params_to_state_dict(tree: Mapping, cfg: CLIPConfig) -> Dict[str, torch.
     """JAX param tree (numpy leaves; mixer, transformer or ResNet towers) ->
     reference-keyed state dict: key for key and value for value the JAX
     package's ``params_to_state_dict``."""
-    require_ported(cfg)
     sd: Dict[str, np.ndarray] = {}
 
     def put_ln(prefix, ln):
@@ -269,7 +267,6 @@ def load_jax_qparams(model, qtree: Mapping) -> Tuple[Optional[nn.Module], Option
     (``load_jax_params``): ``(vision, text)``, each None where the tree's
     tower is not quantized. The int8 weights, their scales and the
     activation scales (``a_scales``, absent: dynamic) are the tree's."""
-    require_ported(model.cfg)
     v, t = qtree["visual"], qtree["text"]
     # the subtree and key of a block's first int8 pack, present when the text tower is quantized
     first, q_key = ("attn", "qkv_q") if model.cfg.use_transformer else ("channel_mix", "w_in_q")

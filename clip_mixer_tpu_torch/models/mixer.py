@@ -173,15 +173,28 @@ def remat_context_fn(remat_policy: Optional[str]):
 class MixerTower(nn.Module):
     """``n_layers`` blocks applied in order to x [B, T, W]; with
     ``remat_policy`` (a ``REMAT_KEEPS`` name; None = no remat) each block is
-    rematerialised whenever autograd records."""
+    rematerialised whenever autograd records. With ``pipeline`` (set by
+    ``parallel/pp.py::shard_model_pp``, which keeps this stage's blocks) the
+    blocks run through the GPipe schedule over the stage group, as JAX's
+    ``mixer_tower(..., pipeline=...)``: :meth:`run_blocks` is the stage's
+    function."""
 
     def __init__(self, width: int, tokens: int, n_layers: int, fused_mlp: bool = False,
                  remat_policy: Optional[str] = None):
         super().__init__()
         self.mixBlocks = nn.ModuleList(MixerBlock(width, tokens, fused_mlp) for _ in range(n_layers))
         self.remat_contexts = remat_context_fn(remat_policy)
+        self.pipeline = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pipeline is not None:
+            from clip_mixer_tpu_torch.parallel.pp import pipeline_tower
+
+            return pipeline_tower(x, self.run_blocks, self.pipeline)
+        return self.run_blocks(x)
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks this module holds, in order, on x."""
         remat = self.remat_contexts is not None and torch.is_grad_enabled()
         for block in self.mixBlocks:
             if remat:  # the blocks compute nothing random

@@ -31,15 +31,6 @@ from clip_mixer_tpu_torch.models.resnet import ModifiedResNet
 from clip_mixer_tpu_torch.models.transformer import TransformerTower, init_transformer_tower
 
 
-def require_ported(cfg: CLIPConfig) -> None:
-    """Raise for what the port does not have yet: pipeline stages.
-    ``model_axis`` is taken: the blocks split over a model group once
-    ``parallel/tp.py::shard_model_tp`` has cut them."""
-    if cfg.pipeline_axis:
-        raise NotImplementedError("CLIPConfig.pipeline_axis is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 16b, pipeline stages)")
-
-
 def remat_policy(cfg: CLIPConfig) -> Optional[str]:
     """The towers' remat policy: ``cfg.remat_policy`` when ``cfg.remat``, else None."""
     return cfg.remat_policy if cfg.remat else None
@@ -86,7 +77,6 @@ class VisionEncoder(nn.Module):
 
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         width, p = cfg.vision_width, cfg.vision_patch_size
         # Reference conv layout [W, 3, p, p]; applied as a patch matmul.

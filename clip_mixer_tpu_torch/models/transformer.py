@@ -160,7 +160,9 @@ class TransformerTower(nn.Module):
     """``n_layers`` blocks applied in order to x [B, T, W]; ``context_length``
     (the text tower) adds the causal mask, held as a buffer outside the state
     dict. With ``remat_policy`` (a ``REMAT_KEEPS`` name; None = no remat)
-    each block is rematerialised whenever autograd records."""
+    each block is rematerialised whenever autograd records. With
+    ``pipeline`` (``parallel/pp.py::shard_model_pp``) the blocks run through
+    the GPipe schedule, as the mixer tower's do."""
 
     def __init__(self, width: int, n_layers: int, n_heads: int, context_length: Optional[int] = None,
                  remat_policy: Optional[str] = None):
@@ -169,8 +171,17 @@ class TransformerTower(nn.Module):
         self.register_buffer("attn_mask", None if context_length is None else causal_mask(context_length),
                              persistent=False)
         self.remat_contexts = remat_context_fn(remat_policy)
+        self.pipeline = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pipeline is not None:
+            from clip_mixer_tpu_torch.parallel.pp import pipeline_tower
+
+            return pipeline_tower(x, self.run_blocks, self.pipeline)
+        return self.run_blocks(x)
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks this module holds, in order, on x."""
         remat = self.remat_contexts is not None and torch.is_grad_enabled()
         for block in self.resblocks:
             if remat:  # the blocks compute nothing random

@@ -312,7 +312,17 @@ def mixer_block_fused(block, x: torch.Tensor) -> torch.Tensor:
 def mixer_tower_fused(tower, x: torch.Tensor) -> torch.Tensor:
     """Every block of ``tower`` (a ``MixerTower``) through
     :func:`mixer_block_fused`, on x [B, T, D]: the drop-in for
-    ``tower(x)``."""
+    ``tower(x)``. A pipelined tower (``parallel/pp.py``) runs the
+    schedule, its stage's blocks so on each microbatch."""
+    pipe = getattr(tower, "pipeline", None)  # any module with mixBlocks is a tower here
+    if pipe is not None:
+        from clip_mixer_tpu_torch.parallel.pp import pipeline_tower
+
+        return pipeline_tower(x, functools.partial(_fused_blocks, tower), pipe)
+    return _fused_blocks(tower, x)
+
+
+def _fused_blocks(tower, x: torch.Tensor) -> torch.Tensor:
     h = x.transpose(0, 1)  # [T, B, D] view; the kernel reads its strides
     for block in tower.mixBlocks:
         h = mixer_block_fused(block, h)

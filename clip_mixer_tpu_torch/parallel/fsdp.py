@@ -59,6 +59,7 @@ import torch.distributed as dist
 
 from clip_mixer_tpu_torch.config import CLIPConfig, TrainConfig
 from clip_mixer_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, data_group
+from clip_mixer_tpu_torch.parallel.pp import gather_stages, stage_local_name
 from clip_mixer_tpu_torch.parallel.tp import gather_tp, group_size, heads_of, port_tp_dim, tp_leaf_dim
 from clip_mixer_tpu_torch.parallel.train_step import make_train_step
 from clip_mixer_tpu_torch.train.optimizer import Optimizer, local
@@ -209,27 +210,35 @@ def apply_fsdp(model, mesh):
 
 
 def is_sharded(model) -> bool:
-    """Whether ``model``'s parameters are split over ranks (FSDP or tensor
-    parallelism): a checkpoint or an export then needs every rank."""
-    return getattr(model, "fsdp_mesh", None) is not None or getattr(model, "tp_group", None) is not None
+    """Whether ``model``'s parameters are split over ranks (FSDP, tensor
+    parallelism, or pipeline stages of more than one rank): a checkpoint or
+    an export then needs every rank."""
+    return (getattr(model, "fsdp_mesh", None) is not None or getattr(model, "tp_group", None) is not None
+            or getattr(model, "pp_stages", 1) > 1)
 
 
 def layout(model) -> Optional[dict]:
     """The sharded layout of ``model`` (None when every rank holds it
-    whole): the world, the mesh's dims, whether FSDP shards it, and each
-    parameter's local shape."""
+    whole): the world, the mesh's dims, whether FSDP shards it, the
+    pipeline stages (when more than one), and each parameter's local shape,
+    a stage's blocks keyed by their index within the stage (so the layout is
+    alike on every rank)."""
     if not is_sharded(model):
         return None
     fsdp_mesh, tp = getattr(model, "fsdp_mesh", None), getattr(model, "tp_group", None)
-    return {"world": dist.get_world_size(), "n_data": 1 if fsdp_mesh is None else fsdp_mesh.size(),
-            "n_model": group_size(tp), "fsdp": fsdp_mesh is not None,
-            "shapes": {n: list(local(p).shape) for n, p in model.named_parameters()}}
+    lay = {"world": dist.get_world_size(), "n_data": 1 if fsdp_mesh is None else fsdp_mesh.size(),
+           "n_model": group_size(tp), "fsdp": fsdp_mesh is not None}
+    if getattr(model, "pp_stages", 1) > 1:
+        lay["n_stage"] = model.pp_stages
+    lay["shapes"] = {stage_local_name(model, n): list(local(p).shape) for n, p in model.named_parameters()}
+    return lay
 
 
 def describe(lay: Optional[dict]) -> str:
     if lay is None:
         return "whole on every rank (replicated)"
-    return (f"a world of {lay['world']}: data {lay['n_data']} x model {lay['n_model']}, "
+    stages = f", {lay['n_stage']} pipeline stages" if "n_stage" in lay else ""
+    return (f"a world of {lay['world']}: data {lay['n_data']} x model {lay['n_model']}{stages}, "
             f"{'FSDP-sharded' if lay['fsdp'] else 'not FSDP-sharded'}")
 
 
@@ -237,8 +246,9 @@ def gather_full(model, tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dic
     """The whole, canonical tensors of ``model``'s state dict (or of
     ``tensors``, keyed alike and laid out as the model's: the EMA), on the
     model's device: each FSDP shard gathered over the data group, each
-    tensor-parallel slice over the model group. A collective: every rank
-    calls it, in the same order."""
+    tensor-parallel slice over the model group, each pipeline stage's
+    blocks over the stage group (``pp.gather_stages``). A collective: every
+    rank calls it, in the same order."""
     params = dict(model.named_parameters())
     sd = model.state_dict() if tensors is None else tensors
     fsdp_mesh, tp = getattr(model, "fsdp_mesh", None), getattr(model, "tp_group", None)
@@ -254,7 +264,7 @@ def gather_full(model, tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dic
         if p is not None:
             t = gather_tp(k, t, tp, heads_of(model, k))
         out[k] = t
-    return out
+    return gather_stages(model, out)
 
 
 def make_fsdp_train_step(cfg: CLIPConfig, tcfg: TrainConfig, optimizer: Optimizer, mesh,

@@ -55,8 +55,11 @@ def data_group(mesh: Optional[DeviceMesh]):
 
 def model_group(mesh: Optional[DeviceMesh]):
     """The process group of the mesh's model dimension (tensor
-    parallelism); None for no mesh or a model dimension of one rank."""
-    if mesh is None or mesh.size(1) == 1:
+    parallelism); None for no mesh, a mesh without one (the pipeline's
+    ``(data, stage)`` mesh, ``parallel/pp.py``) or a model dimension of one
+    rank."""
+    names = () if mesh is None else (mesh.mesh_dim_names or ())
+    if MODEL_AXIS not in names or mesh.size(names.index(MODEL_AXIS)) == 1:
         return None
     return mesh.get_group(MODEL_AXIS)
 

@@ -51,8 +51,9 @@ takes the norm of the whole (:func:`split_groups`).
 The model is ``torch`` state, so the step updates ``TrainState`` in place
 and returns it with the metrics (0-d tensors on the model's device; nothing
 in the step waits for the device). The step runs on the model's device: on
-the card the kernel routes launch their kernels or raise. Pipeline stages
-wait for their ROADMAP.md item.
+the card the kernel routes launch their kernels or raise. Under pipeline
+stages (``parallel/pp.py``) each rank holds its stage's blocks, and the
+gradient norm sums their squares over the stage group.
 """
 
 from __future__ import annotations
@@ -155,14 +156,19 @@ def two_pass_accum_grads(model, accum_steps: int, get_chunk, micro_feats: Callab
 def split_groups(model) -> dict:
     """The process groups of more than one rank that each parameter of
     ``model`` is split over, by name: the model group for a
-    tensor-parallel slice, FSDP's data group for a ``DTensor`` shard; ()
-    for a leaf whole on every rank."""
-    tp = getattr(model, "tp_group", None)
+    tensor-parallel slice, FSDP's data group for a ``DTensor`` shard, the
+    stage group for a block of a pipeline stage (each stage rank holds other
+    blocks, alike in structure); () for a leaf whole on every rank."""
+    from clip_mixer_tpu_torch.parallel.pp import is_stage_block
+
+    tp, pp = getattr(model, "tp_group", None), getattr(model, "pp_group", None)
     out = {}
     for n, p in model.named_parameters():
         groups = ()
         if tp is not None and group_size(tp) > 1 and port_tp_dim(n) is not None:
             groups += (tp,)
+        if pp is not None and group_size(pp) > 1 and is_stage_block(n):
+            groups += (pp,)
         if hasattr(p, "device_mesh") and p.device_mesh.size() > 1:
             groups += (p.device_mesh.get_group(),)
         out[n] = groups

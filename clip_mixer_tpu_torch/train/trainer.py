@@ -39,7 +39,12 @@ optimiser state over its data dimension (``parallel/fsdp.py``). Such a
 state is split over the ranks: every rank writes its own shards into each
 checkpoint (``train/checkpoint.py``), and the export and the validators get
 the whole parameters, gathered by every rank before rank 0 writes or
-validates. Pipeline stages wait for their ROADMAP.md item.
+validates. A mesh with a ``stage`` dimension of more than one rank
+(``parallel/pp.py::make_pp_mesh``) cuts the towers' blocks into pipeline
+stages and trains through the GPipe step with
+``tcfg.pipeline_microbatches`` microbatches, as JAX's trainer selects it;
+its checkpoints hold each rank's stage as a shard, restored only into the
+same layout.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.parallel.dist import any_across, barrier, rank_device, world
 from clip_mixer_tpu_torch.parallel.fsdp import apply_fsdp, gather_full, is_sharded, make_fsdp_train_step
 from clip_mixer_tpu_torch.parallel.mesh import data_group, make_mesh, model_group, replicate
+from clip_mixer_tpu_torch.parallel.pp import make_pp_train_step, n_stages_of, shard_model_pp
 from clip_mixer_tpu_torch.parallel.tp import shard_model_tp
 from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step
 from clip_mixer_tpu_torch.train.checkpoint import Checkpointer
@@ -97,7 +103,9 @@ class Trainer:
     ``mesh``: the parallel layout (``parallel/mesh.py``); by default every
     rank of an initialised process group on the data dimension, else one
     device. A model dimension above one splits the blocks over it;
-    ``tcfg.fsdp`` (which needs a mesh) shards over the data dimension.
+    ``tcfg.fsdp`` (which needs a mesh) shards over the data dimension; a
+    stage dimension above one (``make_pp_mesh``) cuts the blocks into
+    pipeline stages.
     ``data`` yields this rank's rows of each global batch (the ranks of one
     data row hold the same rows).
     ``model``: a :class:`CLIP` to train in place of one initialised from
@@ -134,6 +142,9 @@ class Trainer:
             raise ValueError("TrainConfig.fsdp shards over a mesh's data group: initialise a process group "
                              "(parallel/dist.py; a world of one will do) or pass mesh=")
         self.mesh = mesh
+        self.use_pp = n_stages_of(mesh) > 1
+        if self.use_pp and tcfg.fsdp:
+            raise ValueError("fsdp and pipeline parallelism are mutually exclusive")
         self.group = data_group(mesh)
         self.model_group = model_group(mesh)
         # every rank of the mesh: barriers, the agreed stop, the whole-model broadcast
@@ -156,7 +167,10 @@ class Trainer:
         self.total_steps = steps_per_epoch * tcfg.epochs
         self.optimizer = make_optimizer(tcfg, self.total_steps)
         self._schedule = self.optimizer.schedule
-        if tcfg.fsdp:  # the exact global loss, always, as JAX's FSDP step
+        if self.use_pp:
+            self.step_fn = make_pp_train_step(cfg, tcfg, mesh, self.optimizer, tcfg.pipeline_microbatches,
+                                              grad_through_gather, chunk_size, accum_steps=tcfg.accum_steps)
+        elif tcfg.fsdp:  # the exact global loss, always, as JAX's FSDP step
             self.step_fn = make_fsdp_train_step(cfg, tcfg, self.optimizer, mesh, chunk_size,
                                                 accum_steps=tcfg.accum_steps)
         else:
@@ -185,6 +199,8 @@ class Trainer:
             shard_model_tp(model, self.model_group)
         if tcfg.fsdp:
             apply_fsdp(model, mesh)
+        if self.use_pp:
+            shard_model_pp(model, mesh)
         self.sharded = is_sharded(model)
         self.state = init_train_state(model, self.optimizer)
         self.timings = {"data_wait_s": [], "save_s": [], "save_bytes": [], "validate_s": [], "restore_s": None,

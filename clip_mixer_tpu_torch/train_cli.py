@@ -26,13 +26,17 @@ model mesh (``parallel/mesh.py``; an N that does not divide the world
 exits): the blocks' MLPs and attention heads are split over each model
 group (``parallel/tp.py``), and the ranks of one data row read the same
 rows. ``--fsdp`` shards the parameters and Adam's state over the data
-dimension (``parallel/fsdp.py``) and trains the exact global loss. Both
-need a process group (a world of one will do).
+dimension (``parallel/fsdp.py``) and trains the exact global loss.
+``--pipeline-stages N`` lays them out as a (world / N) data x N stage mesh
+(``parallel/pp.py``): each rank holds its stage's blocks and the towers run
+the GPipe schedule with ``--pipeline-microbatches`` microbatches a step; it
+composes with neither ``--tensor-parallel`` nor ``--fsdp``, as in JAX. All
+three need a process group (a world of one will do).
 
-Flags whose machinery is not ported yet exit with a message naming the
-ROADMAP item. A non-finite loss exits with code 13, as the JAX launcher's
+A non-finite loss exits with code 13, as the JAX launcher's
 ``EXIT_NONFINITE``: under bitwise resume that failure repeats, so a
-supervisor must not restart it.
+supervisor (``launch.py``, ``scripts/torch_supervise.py``) must not restart
+it.
 
 Examples::
 
@@ -42,6 +46,8 @@ Examples::
         --global-batch-size 2048 --steps-per-epoch 50 --epochs 2 --run-name run8
     torchrun --nproc-per-node 8 -m clip_mixer_tpu_torch.train_cli --synthetic --fsdp \\
         --tensor-parallel 2 --global-batch-size 2048 --steps-per-epoch 50 --run-name fsdp_tp
+    torchrun --nproc-per-node 8 -m clip_mixer_tpu_torch.train_cli --synthetic --pipeline-stages 2 \\
+        --pipeline-microbatches 8 --global-batch-size 2048 --steps-per-epoch 50 --run-name pp2
 """
 
 from __future__ import annotations
@@ -74,19 +80,13 @@ from clip_mixer_tpu_torch.evals.validators import (
     RetrievalValidator,
     SST2Validator,
 )
+from clip_mixer_tpu_torch.launch import EXIT_NONFINITE
 from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.ops.augment import source_size
 from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed, rank_device
 from clip_mixer_tpu_torch.parallel.mesh import data_index, make_mesh
+from clip_mixer_tpu_torch.parallel.pp import make_pp_mesh
 from clip_mixer_tpu_torch.train.trainer import Trainer
-
-EXIT_NONFINITE = 13  # clip_mixer_tpu/launch.py:169
-
-# flag -> the ROADMAP.md item that ports its machinery
-NOT_PORTED = {
-    "--pipeline-stages": "Queue 1 item 16b, pipeline stages (GPipe)",
-}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -119,8 +119,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="model-axis size: MLP hidden dims and attention heads split over this many processes; "
                         "the mesh becomes (processes/N) data x N model")
-    p.add_argument("--pipeline-stages", type=int, default=1, help="not ported yet beyond 1")
-    p.add_argument("--pipeline-microbatches", type=int, default=8)
+    p.add_argument("--pipeline-stages", type=int, default=1,
+                   help="pipeline parallelism: split the towers' blocks over this many stages (GPipe "
+                        "fill-drain); the mesh becomes (processes/stages) data x stages")
+    p.add_argument("--pipeline-microbatches", type=int, default=8,
+                   help="microbatches per pipeline step (bubble = (S-1)/(M+S-1))")
     p.add_argument("--cache-data", nargs="?", const=True, default=None, metavar="DIR",
                    help="serve every epoch from a host-RAM cache (needs --data)")
     p.add_argument("--shuffle-buffer", type=int, default=10000)
@@ -153,13 +156,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """SystemExit for the first flag set whose machinery is not ported."""
-    if args.pipeline_stages > 1:
-        flag = "--pipeline-stages"
-        raise SystemExit(f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, {NOT_PORTED[flag]}")
-    if args.tensor_parallel < 1:
-        raise SystemExit(f"--tensor-parallel must be >= 1, got {args.tensor_parallel}")
+def refuse_invalid(args: argparse.Namespace) -> None:
+    """SystemExit for a flag whose value cannot run: a count below 1,
+    ``--cache-data`` without ``--data``, or only part of an explicit
+    rendezvous."""
+    for flag, value in (("--tensor-parallel", args.tensor_parallel), ("--pipeline-stages", args.pipeline_stages),
+                        ("--pipeline-microbatches", args.pipeline_microbatches)):
+        if value < 1:
+            raise SystemExit(f"{flag} must be >= 1, got {value}")
     if args.cache_data is not None and (args.synthetic or args.data is None):
         raise SystemExit("--cache-data needs --data (synthetic data is already RAM-speed)")
     launch = {"--coordinator": args.coordinator, "--num-processes": args.num_processes,
@@ -297,7 +301,7 @@ def init_model(path: str, cfg, seed: int, device):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported(args)
+    refuse_invalid(args)
     launched = not dist.is_initialized() and maybe_initialize_distributed(
         args.device, verbose=args.verbose, coordinator=args.coordinator, num_processes=args.num_processes,
         process_id=args.process_id)
@@ -310,15 +314,28 @@ def main(argv=None) -> None:
 
 def build_mesh(args, device):
     """The mesh of the run: None for one process without a group; else
-    (world / N) data x N model for ``--tensor-parallel N`` (train.py's
-    layout), refusing an N that does not divide the world. ``--fsdp`` and
-    ``--tensor-parallel`` need a process group."""
+    (world / S) data x S stage for ``--pipeline-stages S``, or (world / N)
+    data x N model for ``--tensor-parallel N`` (train.py's layouts),
+    refusing a size that does not divide the world, and pipeline stages
+    with tensor parallelism or FSDP. ``--fsdp``, ``--tensor-parallel`` and
+    ``--pipeline-stages`` need a process group."""
+    if args.pipeline_stages > 1 and args.tensor_parallel > 1:
+        raise SystemExit("--pipeline-stages and --tensor-parallel do not compose")
+    if args.pipeline_stages > 1 and args.fsdp:
+        raise SystemExit("--pipeline-stages and --fsdp do not compose (fsdp and pipeline parallelism are "
+                         "mutually exclusive)")
     if not dist.is_initialized():
-        if args.fsdp or args.tensor_parallel > 1:
-            raise SystemExit("--fsdp and --tensor-parallel shard over a process group: launch under torchrun or "
-                             "with --coordinator / --num-processes / --process-id (a world of one will do)")
+        if args.fsdp or args.tensor_parallel > 1 or args.pipeline_stages > 1:
+            raise SystemExit("--fsdp, --tensor-parallel and --pipeline-stages shard over a process group: launch "
+                             "under torchrun or with --coordinator / --num-processes / --process-id (a world of "
+                             "one will do)")
         return None
     n = dist.get_world_size()
+    if args.pipeline_stages > 1:
+        if n % args.pipeline_stages:
+            raise SystemExit(f"--pipeline-stages {args.pipeline_stages} does not divide the {n} processes "
+                             "(stranded ranks / an empty mesh)")
+        return make_pp_mesh(n_data=n // args.pipeline_stages, n_stage=args.pipeline_stages, device=device)
     if n % args.tensor_parallel:
         raise SystemExit(f"--tensor-parallel {args.tensor_parallel} does not divide the {n} processes "
                          "(stranded ranks / an empty mesh)")

@@ -159,7 +159,7 @@ def test_fused_mlp_remat_runs_the_kernel_forward_once(monkeypatch):
 
 def test_remat_refuses_only_the_multi_device_fields():
     CLIP(SMALL.replace(remat=True, remat_policy="all_hidden"), device="cpu")
-    # model_axis is ported (parallel/tp.py); pipeline stages are still refused
+    # model_axis (parallel/tp.py) and pipeline_axis (parallel/pp.py) are
+    # ported: a config carries them, the groups live on the model
     CLIP(SMALL.replace(remat=True, model_axis="x"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b, pipeline stages"):
-        CLIP(SMALL.replace(pipeline_axis="x"), device="cpu")
+    assert CLIP(SMALL.replace(remat=True, pipeline_axis="x"), device="cpu").cfg.pipeline_axis == "x"

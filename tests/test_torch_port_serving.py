@@ -240,6 +240,16 @@ for name in names:
     importlib.import_module(name)
 from clip_mixer_tpu_torch.text.tokenize import tokenize
 assert tokenize(["a photo of a cat"])[0, :6].tolist() == [49406, 320, 1125, 539, 320, 2368]
+import contextlib, importlib.util, io
+scripts = {}
+for script in ("torch_supervise", "torch_preflight", "torch_memory_plan"):
+    spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
+    scripts[script] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scripts[script])
+with contextlib.redirect_stdout(io.StringIO()):  # their imports inside, run
+    assert scripts["torch_memory_plan"].main(["--preset", "mixer-debug", "--devices", "2"]) == 0
+    scripts["torch_preflight"].check_capacity("mixer-debug", 2, 16, 80.0)
+assert scripts["torch_supervise"].derive_run_name(["--run-name", "r"]) == "r"
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m == "clip_mixer_tpu" or m.startswith("clip_mixer_tpu."))]
 print(len(names), loaded)
@@ -247,10 +257,15 @@ print(len(names), loaded)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every module of the port, and the port's operations scripts
+    (``scripts/torch_supervise.py``, ``torch_preflight.py``,
+    ``torch_memory_plan.py``, run), with JAX and the JAX package blocked."""
     out = subprocess.run(
         [sys.executable, "-c", _ISOLATION], cwd=REPO, capture_output=True, text=True, timeout=300, check=True
     ).stdout.split()
-    assert int(out[0]) >= 44 and out[1] == "[]", out
+    # 44 modules up to the sharded training; parallel/pp, launch, utils and
+    # its memory and profiling modules make 49
+    assert int(out[0]) >= 49 and out[1] == "[]", out
 
 
 def test_entry_points_without_a_device_raise_on_a_host_without_cuda(monkeypatch):

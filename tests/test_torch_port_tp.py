@@ -290,7 +290,6 @@ def test_kernel_routes_and_indivisible_heads_are_refused(group1):
         ttp.check_tp(tcfg.CLIPConfig(**dict(CFG, tower="transformer")), 4)
     with pytest.raises(ValueError, match="vision_heads=1"):
         ttp.check_tp(tcfg.CLIPConfig(**dict(CFG, tower="transformer", vision_width=64)), 2)
-    # CLIPConfig.model_axis is taken; pipeline_axis is still refused
+    # CLIPConfig.model_axis and pipeline_axis are taken (parallel/pp.py)
     CLIP(tcfg.CLIPConfig(**dict(CFG, model_axis="model")), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b, pipeline stages"):
-        CLIP(tcfg.CLIPConfig(**dict(CFG, pipeline_axis="stage")), device="cpu")
+    assert CLIP(tcfg.CLIPConfig(**dict(CFG, pipeline_axis="stage")), device="cpu").transformer.pipeline is None

@@ -73,14 +73,12 @@ LAUNCH = {
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED))
 def test_each_unported_flag_exits_with_its_roadmap_item(flag):
-    """--pipeline-stages is not ported and names its ROADMAP item. --fsdp and
-    --tensor-parallel are (tests/test_torch_port_fsdp.py trains with both in
-    a world of 4); in one process without a group they exit before anything
-    starts, naming the launch they need."""
-    if flag == "--pipeline-stages":
-        match = f"{flag} is not ported to clip_mixer_tpu_torch yet: ROADMAP.md, Queue 1 item 16b, pipeline"
-    else:
-        match = "--fsdp and --tensor-parallel shard over a process group: launch under torchrun"
+    """Every flag is ported: --fsdp and --tensor-parallel
+    (tests/test_torch_port_fsdp.py trains with both in a world of 4) and
+    --pipeline-stages (tests/test_torch_port_pp_trainer.py, a world of 2); in
+    one process without a group they exit before anything starts, naming
+    the launch they need."""
+    match = "--fsdp, --tensor-parallel and --pipeline-stages shard over a process group: launch under torchrun"
     with pytest.raises(SystemExit, match=match):
         train_cli.main(RUN + UNPORTED[flag])
     assert not os.path.exists("outputs")
@@ -95,7 +93,6 @@ def test_tensor_parallel_must_divide_the_world(monkeypatch):
         train_cli.build_mesh(args, "cpu")
     with pytest.raises(SystemExit, match="--tensor-parallel must be >= 1"):
         train_cli.main(RUN + ["--tensor-parallel", "0"])
-    assert train_cli.NOT_PORTED == {"--pipeline-stages": "Queue 1 item 16b, pipeline stages (GPipe)"}
 
 
 @pytest.mark.parametrize("flag", sorted(LAUNCH))

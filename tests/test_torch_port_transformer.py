@@ -335,10 +335,8 @@ def test_init_distributions_match_jax_per_tensor():
 
 @pytest.mark.parametrize("field,value", [("model_axis", "model"), ("pipeline_axis", "pipe")])
 def test_multi_device_fields_raise_naming_slice_f(field, value):
-    """model_axis is ported (the blocks split once parallel/tp.py cuts
-    them); pipeline_axis still raises, naming its ROADMAP item."""
-    if field == "model_axis":
-        assert CLIP(tcfg.CLIPConfig(**dict(SMALL, **{field: value})), device="cpu").cfg.model_axis == value
-        return
-    with pytest.raises(NotImplementedError, match="item 16b, pipeline stages"):
-        CLIP(tcfg.CLIPConfig(**dict(SMALL, **{field: value})), device="cpu")
+    """Both are ported: model_axis (the blocks split once parallel/tp.py
+    cuts them) and pipeline_axis (the towers run the schedule once
+    parallel/pp.py cuts them into stages); a config carries them."""
+    model = CLIP(tcfg.CLIPConfig(**dict(SMALL, **{field: value})), device="cpu")
+    assert getattr(model.cfg, field) == value and model.transformer.pipeline is None

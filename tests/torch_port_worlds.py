@@ -12,6 +12,7 @@ or hangs fails the test with every rank's output.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import signal
 import subprocess
@@ -20,11 +21,24 @@ import time
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 REPO = str(Path(__file__).resolve().parents[1])
 DEADLINE_S = 240.0
 GLOO_TIMEOUT_S = 60.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread in the test process while a module that imports
+    this fixture runs: the suite's workers and their spawned ranks share a
+    few cores, and torch's default pool (a thread a core in every process)
+    oversubscribes them, tiny ops waiting on each other's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def run_world(task: str, n: int, tmp_path, payload=None, timeout: float = DEADLINE_S):
@@ -407,9 +421,138 @@ def _sharded_trainer(rank, n, p):
     return out
 
 
+def _pp_towers(rank, n, p):
+    """``pipeline_tower`` on each tower of the payload's model, over a
+    (n / S) x S (data, stage) mesh for each S of ``p["stages"]``: this
+    stage's blocks cut by ``shard_model_pp``, the whole input on every rank;
+    returns the output and the input's gradient of a fixed cotangent, and
+    this rank's block gradients keyed by their index in the whole tower."""
+    from clip_mixer_tpu_torch import config as tcfg
+    from clip_mixer_tpu_torch.models.clip import CLIP
+    from clip_mixer_tpu_torch.parallel import pp
+
+    out = {}
+    for kind, model_kw in p["models"].items():
+        for S in p["stages"]:
+            mesh = pp.make_pp_mesh(n // S, S, device="cpu")
+            model = CLIP(tcfg.CLIPConfig(**model_kw), device="cpu")
+            model.load_state_dict(p["init"][kind])
+            pp.shard_model_pp(model, mesh)
+            pp.set_microbatches(model, p["n_micro"])
+            for tower_name, tower in (("visual", model.visual.transformer), ("text", model.transformer)):
+                x = torch.tensor(p["x"][kind][tower_name], requires_grad=True)
+                y = tower(x)
+                (y * torch.tensor(p["ct"][kind][tower_name])).sum().backward()
+                prefix = "visual.transformer." if tower_name == "visual" else "transformer."
+                grads = {f"{prefix}{k}": q.grad.clone() for k, q in tower.named_parameters()}
+                out[(kind, S, tower_name)] = {"y": y.detach().numpy(), "dx": x.grad.numpy(), "grads": grads}
+    return out
+
+
+def _pp_run(rank, n, case):
+    """One case of the pipelined step over a (n / S) x S mesh: the steps of
+    ``make_pp_train_step`` from the payload's weights on this rank's data
+    row of the global batches. Returns the metrics, the gathered whole state
+    and EMA (rank 0) and their hash, the block indices this rank holds, and
+    its replicated (non-block) gradients after the last step."""
+    from clip_mixer_tpu_torch import config as tcfg
+    from clip_mixer_tpu_torch.models.clip import CLIP
+    from clip_mixer_tpu_torch.parallel import fsdp as tfsdp
+    from clip_mixer_tpu_torch.parallel import pp
+    from clip_mixer_tpu_torch.parallel import train_step as tstep
+    from clip_mixer_tpu_torch.parallel.mesh import data_group, replicate, shard_batch
+    from clip_mixer_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = tcfg.CLIPConfig(**case["model"])
+    if case.get("siglip"):
+        cfg = cfg.for_siglip()
+    tc = tcfg.TrainConfig(**case["train"])
+    S = case["n_stage"]
+    mesh = pp.make_pp_mesh(n // S, S, device="cpu")
+    model = CLIP(cfg, device="cpu", generator=torch.Generator().manual_seed(100 + rank))  # differs by rank
+    if rank == 0:
+        model.load_state_dict(case["init"])
+    replicate(_group(), model)
+    pp.shard_model_pp(model, mesh)
+    saved = pp._collected
+    if case.get("fault") == "collect_t_minus_S":
+        pp._collected = lambda t, S, n_micro: (t - S) if 0 <= t - S < n_micro else None
+    try:
+        opt = make_optimizer(tc, total_steps=case["total_steps"])
+        state = tstep.init_train_state(model, opt)
+        step = pp.make_pp_train_step(cfg, tc, mesh, opt, case["n_micro"], **case.get("step", {}))
+        metrics = []
+        for batch in case["batches"]:
+            state, m = step(state, shard_batch(data_group(mesh), batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        pp._collected = saved
+    whole = {k: v.clone() for k, v in tfsdp.gather_full(model).items()}
+    ema = state.opt_state.ema
+    ema = None if ema is None else {k: v.clone() for k, v in tfsdp.gather_full(model, ema).items()}
+    out = {"metrics": metrics, "hash": state_hash(whole), "ema_hash": None if ema is None else state_hash(ema),
+           "blocks": sorted({int(pp._BLOCK.match(k).group(2)) for k, _ in model.named_parameters()
+                             if pp.is_stage_block(k)}),
+           "replicated_grads": {k: q.grad.clone() for k, q in model.named_parameters()
+                                if q.grad is not None and not pp.is_stage_block(k)},
+           "moment_keys": sorted(state.opt_state.mu)}
+    if rank == 0:
+        out["state"], out["ema"] = whole, ema
+    return out
+
+
+def _pp_steps(rank, n, p):
+    return {name: _pp_run(rank, n, case) for name, case in p.items()}
+
+
+def _pp_trainer(rank, n, p):
+    """``train_cli --pipeline-stages`` in each rank (the group is up): run
+    "straight" through, run "resumed" crashed by the drill after a save and
+    resumed; both runs' last checkpoint shard of this rank and the exports
+    compared; each run's losses; then a restore of the straight run into
+    another layout (``p["other_flags"]``), which must be refused."""
+    from clip_mixer_tpu_torch import train_cli
+
+    base = p["argv"] + p["flags"]
+    out = {}
+    train_cli.main(base + ["--run-name", "straight"])
+    try:
+        train_cli.main(base + ["--run-name", "resumed", "--crash-after-steps", str(p["crash"])])
+    except RuntimeError as e:
+        assert "fault injection" in str(e), e
+    else:
+        raise AssertionError("the crash drill did not raise")
+    out["after_crash"] = sorted(os.listdir(os.path.join("outputs", "resumed", "checkpoints")))
+    train_cli.main(base + ["--run-name", "resumed"])
+    runs = {r: os.path.join("outputs", r) for r in ("straight", "resumed")}
+    out["checkpoints"] = {r: sorted(os.listdir(os.path.join(d, "checkpoints"))) for r, d in runs.items()}
+    last = out["checkpoints"]["straight"][-1]
+    out["files"] = sorted(os.listdir(os.path.join(runs["straight"], "checkpoints", last)))
+    with open(os.path.join(runs["straight"], "checkpoints", last, "layout.json")) as f:
+        out["layout"] = json.load(f)
+    shard = [torch.load(os.path.join(d, "checkpoints", last, f"shard-{rank}.pt"), weights_only=True)
+             for d in runs.values()]
+    out["shard_keys"] = sorted(shard[0]["model"])
+    flat = [{**{f"model.{k}": v for k, v in s["model"].items()},
+             **{f"{w}.{k}": v for w in ("mu", "nu") for k, v in s["opt_state"][w].items()}} for s in shard]
+    out["shard_hashes"] = [state_hash(f) for f in flat]
+    out["export_hashes"] = [state_hash(torch.load(os.path.join(d, "export", "model.pt"), weights_only=True))
+                            for d in runs.values()]
+    out["losses"] = {}
+    for r, d in runs.items():
+        with open(os.path.join(d, "runs", "metrics.jsonl")) as f:
+            out["losses"][r] = [row["value"] for row in map(json.loads, f) if row.get("name") == "Loss"]
+    try:
+        train_cli.main(p["argv"] + p["other_flags"] + ["--run-name", "straight", "--epochs", "2"])
+    except ValueError as e:
+        out["refusal"] = str(e)
+    return out
+
+
 TASKS = {"losses": _losses, "moments": _moments, "dp_steps": _dp_steps, "trainer_resume": _trainer_resume,
          "trainer_sigterm": _trainer_sigterm, "tar_step": _tar_step, "sharded_steps": _sharded_steps,
-         "sharded_trainer": _sharded_trainer}
+         "sharded_trainer": _sharded_trainer, "pp_towers": _pp_towers, "pp_steps": _pp_steps,
+         "pp_trainer": _pp_trainer}
 
 
 def _main(argv):
