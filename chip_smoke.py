@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
 its model loading, its serving CLI, its evals, its real-data sources, its frozen serving programs, its
-release, its C++ tokenizer, its data-parallel, sharded and pipelined training and its operations tools on one
-CUDA card and check its kernels.
+release, its C++ tokenizer, its data-parallel, sharded and pipelined training, its operations tools, its
+top-level API, its examples and its synthetic training demo on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -90,9 +90,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    boundary. Then one epoch fed straight from
    ``SyntheticSource``, the export of run A loaded by ``load_pretrained``
    into ``InferenceEngine`` (5 captions and 7 images against A's EMA through
-   the same towers: cosine >= 0.999 a row), and ``train_cli`` in a
-   subprocess (B = 64, 2 steps), which must exit 0 and write
-   ``export/model.pt``. Reports images a second (steady, cached and not),
+   the same towers: cosine >= 0.999 a row). (``train_cli`` runs as a
+   process of its own in 10c, 11c and 12c.) Reports images a second (steady, cached and not),
    ms a step and its data wait, save ms and bytes, restore, export and
    load ms, and peak memory.
 
@@ -230,8 +229,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (``::2`` / ``::1``, B = 256, 8 steps) with ``--val-data`` and the default
    validators, as a subprocess: the four remote ones skip at steps 4 and 8,
    each pass timed, and ``metrics.jsonl`` holds the retrieval rows at both;
-   ``train_cli --cache-data`` over one glob; ``eval_cli`` with all five
-   validators on the run's export; and a shard with a ``.jpg`` member under
+   beside it ``train_cli --cache-data`` over one glob and a shard with a
+   ``.jpg`` member, and ``eval_cli`` with all five validators on the
+   ``--cache-data`` run's export once it is written. The ``.jpg`` member
+   trains under
    ``--on-decode-error substitute`` (``mixer-debug``: the decode is tested), which must exit non-zero with the
    ``ImportError`` naming Pillow where Pillow is absent (train where present).
 
@@ -279,10 +280,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    loss (at a world of one, one tick and no hop), each bit for bit the
    single-device step. 12c: ``python -m clip_mixer_tpu_torch.train_cli
    --coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0``
-   (full-width Mixer-B/32, ``--fused-mlp``, global batch 256): 4 steps
-   straight, beside a run the drill stops after its checkpoint at step 2,
-   resumed by a third process; the two final checkpoints bit for bit;
-   seconds to the first step. 12d: ``InferenceEngine(devices=[the card])``
+   (full-width Mixer-B/32, ``--fused-mlp``, global batch 128): 4 steps
+   straight, beside the same run under ``scripts/torch_supervise.py
+   --max-restarts 1`` with the crash drill (the child dies after step 3, is
+   restarted once, resumes from its checkpoint at step 2 and exits 0,
+   exported, each step's loss written once); the two final checkpoints bit
+   for bit; seconds to the first step. 13c's two runs go beside these two,
+   and ``scripts/torch_preflight.py --preset mixer-b32 --devices 1
+   --global-batch 256 --hbm-gib 80`` beside all four, which must exit 0 and
+   name the card. 12d: ``InferenceEngine(devices=[the card])``
    and ``export_servable(mesh=[the card])`` of full-width Mixer-B/32 on the
    fused-block and ``fused_mlp`` routes on 256x256 sources: text and image
    features bit for bit the single-device engine's, the bench front end
@@ -299,11 +305,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    step on their routes; step ms (steps 2-3) and peak memory of the three.
    13b: ``shard_model_tp`` over a model group of one on Mixer-B/32 (plain)
    and ViT-B/32 (head-split attention), 2 steps each, bit for bit the whole
-   model's (a group of one moves nothing across cards). 13c: ``train_cli
-   --fsdp`` in a world of one: a run straight through, one stopped by the
-   drill after its save at step 2 and resumed; the two last sharded
-   checkpoints bit for bit; seconds to the first step.
-14. Pipeline stages and the operations tools, a world of one over NCCL.
+   model's (a group of one moves nothing across cards). 13c (run beside
+   12c's): ``train_cli --fsdp`` in a world of one at global batch 128, a
+   run straight through beside the same run under the supervisor's crash
+   drill, as 12c's; the two last sharded checkpoints bit for bit; seconds
+   to the first step.
+14. Pipeline stages and the memory plan, a world of one over NCCL.
    14a: full-width Mixer-B/32 (bf16, f32 masters, seed 0) at B = 256 on
    each route, with every launch counter set to 0 first: the GPipe step
    (``parallel/pp.py``, a (1, 1) (data, stage) mesh: the towers through
@@ -317,13 +324,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    n_micro ``ln_mlp`` or ``fused_mixer_block`` launches a step on their
    routes; step ms of the three in turns (``utils/profiling.py``'s
    ``chained_train_time``, CUDA events) and each one's peak memory alone.
-   14b: ``scripts/torch_supervise.py`` runs ``train_cli`` (Mixer-B/32) with
-   the crash drill: the child dies after step 3, is restarted once,
-   resumes from its checkpoint at step 2 and exits 0. 14c:
-   ``utils/memory.plan`` for the cases of phases 4 and 14a beside their
-   peaks, and the ratio. 14d (beside 14b): ``scripts/torch_preflight.py
-   --preset mixer-b32 --devices 1 --global-batch 256 --hbm-gib 80`` exits 0
-   and names the card.
+   14c: ``utils/memory.plan`` for the cases of phases 4 and 14a beside
+   their peaks, and the ratio. (The supervisor's crash drill and the
+   preflight, once 14b and 14d, run in 12c.)
+15. The top-level API, the examples and the synthetic training demo, every
+   launch counter set to 0 before each run. 15a: a seed-0 full-width
+   Mixer-B/32 export with ``fused_mlp=True`` written by
+   ``clip_mixer_tpu_torch.save_pretrained``; ``clip_mixer_tpu_torch.load``
+   of it against the same weights on the plain route (per-row cosine >=
+   0.999, ``ln_mlp`` launched); ``examples/torch_zero_shot.py``,
+   ``torch_serve_embed.py`` and ``torch_semantic_search.py`` run on it in
+   this process (``runpy``, ``sys.argv = [script, export]``), each
+   launching ``ln_mlp``, with the lines they print checked: the zero-shot
+   example's native probabilities (the card, f32) within 1e-3 of its compat
+   ones (the CPU), the shapes, the top-2 and the hits. 15b:
+   ``examples/torch_train_tiny.py`` and ``torch_finetune_locked_tower.py``
+   (``mixer-debug``) on the card, the fine-tune's own assertion holding.
+   15c: ``scripts/torch_train_synthetic_demo.py`` at its defaults (full-width
+   Mixer-B/32 with remat, 150 steps at B = 512), its JSON line printed: the
+   loss down >= 1 nat from its first and the held-out zero-shot accuracy
+   >= 0.5 (8x chance).
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -1461,9 +1481,6 @@ EXPORT_CAPTIONS, EXPORT_IMAGES = 5, 7
 # makes the loss fall 10% in 12 steps (the default's 12th loss read 0.979x
 # its first, with a spike at step 3, where the lr peaks). Reported, not held.
 LR_PROBE = ((1e-4, 2), (2e-4, 6), (2e-3, 2))
-CLI_ARGS = ["--synthetic", "--preset", "mixer-b32", "--global-batch-size", "64", "--steps-per-epoch", "2",
-            "--epochs", "1", "--checkpoint-every", "2"]
-CLI_TIMEOUT_S = 600
 
 
 def trainer_configs():
@@ -1574,8 +1591,7 @@ def trainer_path(dev, counters):
     run A uninterrupted, run C the same in a fresh directory (the
     determinism witness), run B crashed by the drill after 6 steps and
     resumed from step 4 by a new Trainer; then one epoch fed straight from
-    SyntheticSource, the export served through InferenceEngine, and the CLI
-    in a subprocess."""
+    SyntheticSource, and the export served through InferenceEngine."""
     import os
     import shutil
     import tempfile
@@ -1733,24 +1749,6 @@ def trainer_path(dev, counters):
         out["export_min_cosine_vs_ema"] = cos
         del model, ref_model, served, ref, ema_sd
         free_card()
-
-        # the command line, in a process of its own
-        run_name = f"chip_smoke_cli_{os.getpid()}"
-        repo = os.path.dirname(os.path.abspath(__file__))
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "clip_mixer_tpu_torch.train_cli", *CLI_ARGS,
-                               "--run-name", run_name], cwd=repo, capture_output=True, text=True,
-                              timeout=CLI_TIMEOUT_S)
-        out["cli_s"] = time.perf_counter() - t0
-        cli_dir = os.path.join(repo, "outputs", run_name)
-        exported = os.path.isfile(os.path.join(cli_dir, "export", "model.pt"))
-        shutil.rmtree(cli_dir, ignore_errors=True)
-        if proc.returncode != 0 or not exported:
-            log(f"train_cli stdout: {proc.stdout[-4000:]}")
-            log(f"train_cli stderr: {proc.stderr[-4000:]}")
-        require(proc.returncode == 0, f"train_cli exited {proc.returncode}")
-        require(exported, "train_cli wrote no export/model.pt")
-        out["cli"] = {"argv": CLI_ARGS, "rc": proc.returncode, "export": True}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["blocks"] = blocks
@@ -3637,73 +3635,52 @@ def sources_and_retrieval(dev, counters, cfg, root):
     return out, globs
 
 
-def cli_run(argv, cwd, log_path, timeout=EVAL_CLI_TIMEOUT_S):
-    """``python -m <argv>`` in ``cwd`` with this repo on the path; (rc,
-    stdout, seconds), standard error to ``log_path``."""
+def cli_start(argv, cwd, log_path):
+    """Start ``python -m <argv>`` in ``cwd`` with this repo on the path,
+    standard output to ``<log_path>.out`` and standard error to
+    ``log_path``; returns what :func:`cli_finish` reads."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
     t0 = time.perf_counter()
-    with open(log_path, "w") as err:
-        proc = subprocess.run([sys.executable, "-m", *argv], cwd=cwd, env=env, stdout=subprocess.PIPE,
-                              stderr=err, text=True, timeout=timeout)
-    s = time.perf_counter() - t0
+    with open(f"{log_path}.out", "w") as out, open(log_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=cwd, env=env, stdout=out, stderr=err, text=True)
+    ended = {}  # its exit time, for its seconds, whenever it is read
+
+    def wait():
+        proc.wait()
+        ended["t"] = time.perf_counter()
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return proc, argv, log_path, t0, waiter, ended
+
+
+def cli_finish(started, timeout=EVAL_CLI_TIMEOUT_S):
+    """(rc, stdout, seconds) of a :func:`cli_start` process, killed past
+    ``timeout`` seconds from its start."""
+    proc, argv, log_path, t0, waiter, ended = started
+    waiter.join(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    if proc.poll() is None:
+        proc.kill()
+        waiter.join()
+    s = ended["t"] - t0
+    with open(f"{log_path}.out") as f:
+        stdout = f.read()
     if proc.returncode:
         with open(log_path) as f:
-            log(f"{argv[0]} exited {proc.returncode}: stdout {proc.stdout[-3000:]} stderr {f.read()[-3000:]}")
-    return proc.returncode, proc.stdout, s
+            log(f"{argv[0]} exited {proc.returncode}: stdout {stdout[-3000:]} stderr {f.read()[-3000:]}")
+    return proc.returncode, stdout, s
 
 
-def clis(cfg, root, globs):
-    """Phase 10c: train_cli on the mixture with --val-data and the default
-    validators, train_cli --cache-data, eval_cli on the export, and a .jpg
-    member on a host without Pillow."""
+def jpg_shard(root):
+    """A shard with a ``.jpg`` member beside an ``.npy`` one under
+    ``root/jpg``; whether Pillow is here (without it the member cannot be
+    decoded)."""
     import io
-    import re
     import tarfile
 
     from clip_mixer_tpu_torch import PRESETS
 
-    out = {}
-    run = ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size", str(EVAL_CLI_B),
-           "--steps-per-epoch", "8", "--validate-every", "4", "--checkpoint-every", "8", "--keep-checkpoints", "1",
-           "--verbose", "--data", f"{globs['alpha']}::2", "--data", f"{globs['omega']}::1",
-           "--val-data", globs["heldout"], "--run-name", "mix"]
-    rc, stdout, out["train_cli_s"] = cli_run(run, root, f"{root}/train_cli.err")
-    require(rc == 0, f"train_cli on the mixture exited {rc}")
-    passes = [(int(s), name, float(t)) for s, name, t in
-              re.findall(r"^validate step (\d+): (\w+) ([0-9.]+) s$", stdout, flags=re.M)]
-    require(sorted({(s, n) for s, n, _ in passes}) == sorted(
-        (s, n) for s in (4, 8) for n in REMOTE_VALIDATORS + ("RetrievalValidator",)), passes)
-    skipped = {tag: stdout.count(f"[{tag}] skipped") for tag in ("imagenet", "sst2", "mnist")}
-    skipped["sts"] = stdout.count("[sts:")
-    require(skipped["imagenet"] == skipped["sst2"] == skipped["mnist"] == 2 and skipped["sts"] == 12,
-            f"the remote validators did not skip offline at steps 4 and 8: {skipped}")
-    out["validator_pass_s"] = {f"{n}@{s}": t for s, n, t in passes}
-    with open(f"{root}/outputs/mix/runs/metrics.jsonl") as f:
-        rows = [json.loads(line) for line in f]
-    scored = sorted((r["step"], r["name"]) for r in rows if r["name"].startswith("Retrieval"))
-    require(scored == sorted((s, f"Retrieval {d} R@{k}") for s in (4, 8) for d in ("I->T", "T->I") for k in (1, 5)),
-            f"metrics.jsonl retrieval rows: {scored}")
-    out["retrieval_rows"] = {f"{r['name']}@{r['step']}": r["value"] for r in rows if r["name"].startswith("Retrieval")}
-    export = f"{root}/outputs/mix/export"
-
-    rc, _, out["cache_cli_s"] = cli_run(
-        ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size", str(EVAL_CLI_B),
-         "--steps-per-epoch", "2", "--checkpoint-every", "2", "--no-validators",
-         "--data", globs["alpha"], "--cache-data", f"{root}/cache", "--run-name", "cached"],
-        root, f"{root}/cache_cli.err")
-    require(rc == 0 and len(os.listdir(f"{root}/cache")) == 2, f"train_cli --cache-data exited {rc}")
-
-    rc, stdout, out["eval_cli_s"] = cli_run(
-        ["clip_mixer_tpu_torch.eval_cli", "--model", export, "--validators", "sts", "sst2", "mnist", "imagenet",
-         "retrieval", "--val-data", globs["heldout"], *EVAL_CLI_DEVICE],
-        root, f"{root}/eval_cli.err")
-    found = re.findall(r"^\[retrieval\] (\{.*\})$", stdout, flags=re.M)
-    require(rc == 0 and len(found) == 1, f"eval_cli exited {rc}; retrieval lines {found}")
-    out["eval_cli_retrieval"] = json.loads(found[0].replace("'", '"'))
-    require(out["eval_cli_retrieval"]["n"] == HELD_OUT_N, out["eval_cli_retrieval"])
-
-    # a .jpg member: without Pillow an ImportError naming it, nothing substituted
     try:
         from PIL import Image
     except ImportError:
@@ -3722,10 +3699,60 @@ def clis(cfg, root, globs):
             info = tarfile.TarInfo(name)
             info.size = len(data)
             tar.addfile(info, io.BytesIO(data))
-    rc, _, s = cli_run(["clip_mixer_tpu_torch.train_cli", "--preset", JPG_PRESET, "--epochs", "1", *EVAL_CLI_DEVICE,
-                        "--global-batch-size", "2",
-                        "--steps-per-epoch", "1", "--no-validators", "--on-decode-error",
-                        "substitute", "--data", f"{root}/jpg/*.tar", "--run-name", "jpg"], root, f"{root}/jpg.err")
+    return pillow
+
+
+def clis(cfg, root, globs):
+    """Phase 10c: train_cli on the mixture with --val-data and the default
+    validators, train_cli --cache-data and a .jpg member on a host without
+    Pillow side by side, and eval_cli on the --cache-data run's export as
+    soon as it is written."""
+    import re
+
+    out = {}
+    pillow = jpg_shard(root)
+    run = ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size", str(EVAL_CLI_B),
+           "--steps-per-epoch", "8", "--validate-every", "4", "--checkpoint-every", "8", "--keep-checkpoints", "1",
+           "--verbose", "--data", f"{globs['alpha']}::2", "--data", f"{globs['omega']}::1",
+           "--val-data", globs["heldout"], "--run-name", "mix"]
+    started = {
+        "train": cli_start(run, root, f"{root}/train_cli.err"),
+        "cache": cli_start(
+            ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size",
+             str(EVAL_CLI_B), "--steps-per-epoch", "2", "--checkpoint-every", "2", "--no-validators",
+             "--data", globs["alpha"], "--cache-data", f"{root}/cache", "--run-name", "cached"],
+            root, f"{root}/cache_cli.err"),
+        "jpg": cli_start(["clip_mixer_tpu_torch.train_cli", "--preset", JPG_PRESET, "--epochs", "1",
+                          *EVAL_CLI_DEVICE, "--global-batch-size", "2", "--steps-per-epoch", "1", "--no-validators",
+                          "--on-decode-error", "substitute", "--data", f"{root}/jpg/*.tar", "--run-name", "jpg"],
+                         root, f"{root}/jpg.err"),
+    }
+    rc, _, out["cache_cli_s"] = cli_finish(started["cache"])
+    require(rc == 0 and len(os.listdir(f"{root}/cache")) == 2, f"train_cli --cache-data exited {rc}")
+    started["eval"] = cli_start(
+        ["clip_mixer_tpu_torch.eval_cli", "--model", f"{root}/outputs/cached/export", "--validators", "sts", "sst2",
+         "mnist", "imagenet", "retrieval", "--val-data", globs["heldout"], *EVAL_CLI_DEVICE],
+        root, f"{root}/eval_cli.err")
+
+    rc, stdout, out["train_cli_s"] = cli_finish(started["train"])
+    require(rc == 0, f"train_cli on the mixture exited {rc}")
+    passes = [(int(s), name, float(t)) for s, name, t in
+              re.findall(r"^validate step (\d+): (\w+) ([0-9.]+) s$", stdout, flags=re.M)]
+    require(sorted({(s, n) for s, n, _ in passes}) == sorted(
+        (s, n) for s in (4, 8) for n in REMOTE_VALIDATORS + ("RetrievalValidator",)), passes)
+    skipped = {tag: stdout.count(f"[{tag}] skipped") for tag in ("imagenet", "sst2", "mnist")}
+    skipped["sts"] = stdout.count("[sts:")
+    require(skipped["imagenet"] == skipped["sst2"] == skipped["mnist"] == 2 and skipped["sts"] == 12,
+            f"the remote validators did not skip offline at steps 4 and 8: {skipped}")
+    out["validator_pass_s"] = {f"{n}@{s}": t for s, n, t in passes}
+    with open(f"{root}/outputs/mix/runs/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    scored = sorted((r["step"], r["name"]) for r in rows if r["name"].startswith("Retrieval"))
+    require(scored == sorted((s, f"Retrieval {d} R@{k}") for s in (4, 8) for d in ("I->T", "T->I") for k in (1, 5)),
+            f"metrics.jsonl retrieval rows: {scored}")
+    out["retrieval_rows"] = {f"{r['name']}@{r['step']}": r["value"] for r in rows if r["name"].startswith("Retrieval")}
+
+    rc, _, s = cli_finish(started["jpg"])
     with open(f"{root}/jpg.err") as f:
         err = f.read()
     if pillow:
@@ -3734,6 +3761,12 @@ def clis(cfg, root, globs):
         require(rc != 0 and "ImportError: decoding .jpg/.jpeg/.png records needs Pillow" in err
                 and "substituted" not in err, f"without Pillow: rc {rc}, stderr {err[-2000:]}")
     out["jpg_member"] = {"pillow": pillow, "rc": rc, "s": s}
+
+    rc, stdout, out["eval_cli_s"] = cli_finish(started["eval"])
+    found = re.findall(r"^\[retrieval\] (\{.*\})$", stdout, flags=re.M)
+    require(rc == 0 and len(found) == 1, f"eval_cli exited {rc}; retrieval lines {found}")
+    out["eval_cli_retrieval"] = json.loads(found[0].replace("'", '"'))
+    require(out["eval_cli_retrieval"]["n"] == HELD_OUT_N, out["eval_cli_retrieval"])
     return out
 
 
@@ -4139,9 +4172,11 @@ DP_STEPS = 3  # 12a: steps on each route, each beside the single-device step
 DP_RN_STEPS = 2  # 12b: RN50 steps with SyncBN
 DP_EMA = 0.999
 DP_ALLREDUCE_ITERS = 5
-DP_CLI_B = 256
-DP_CLI_STEPS = 4  # 12c: the uninterrupted run; the interrupted one stops after DP_CLI_CRASH and resumes
-DP_CLI_CRASH = 2
+DP_CLI_B = 128  # 12c / 13c: four full-width training processes share the card
+DP_CLI_STEPS = 4  # 12c / 13c: each run's steps
+DP_CLI_EVERY = 2  # 12c / 13c: the checkpoint cadence
+DP_SUPERVISED_CRASH = 3  # 12c / 13c: the supervised child dies after step 3, past its checkpoint at 2
+PREFLIGHT_ARGS = ["--preset", "mixer-b32", "--devices", "1", "--global-batch", "256", "--hbm-gib", "80"]
 DP_CLI_ARGS = ["--synthetic", "--preset", "mixer-b32", "--fused-mlp", "--no-validators", "--epochs", "1"]
 DP_CLI_DEVICE = []  # extra train_cli flags (a CPU rehearsal: --device cpu)
 DP_CLI_TIMEOUT_S = 300
@@ -4314,24 +4349,23 @@ def dp_syncbn_siglip(dev, counters, group):
     return out
 
 
-def dp_cli_run(root, run_name, extra, dev_log, args=None):
+def dp_cli_run(root, run_name, args, extra, dev_log, supervised=False):
     """Start one ``train_cli`` process of a world of one (its own free port)
-    in ``root``, with ``args`` (DP_CLI_ARGS when None): (the process, its
-    start time, its heartbeat file and that file's mtime before the start,
-    None where it was absent)."""
+    in ``root``, with ``args`` and ``extra``, under
+    ``scripts/torch_supervise.py --max-restarts 1 --backoff 0`` when
+    ``supervised``: (the process, its start time, its heartbeat file)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
-    argv = [sys.executable, "-m", "clip_mixer_tpu_torch.train_cli", *(DP_CLI_ARGS if args is None else args),
-            *DP_CLI_DEVICE,
+    head = ([sys.executable, os.path.join(repo, "scripts", "torch_supervise.py"), "--max-restarts", "1",
+             "--backoff", "0", "--"] if supervised else [sys.executable, "-m", "clip_mixer_tpu_torch.train_cli"])
+    argv = [*head, *args, *DP_CLI_DEVICE,
             "--global-batch-size", str(DP_CLI_B), "--steps-per-epoch", str(DP_CLI_STEPS),
-            "--checkpoint-every", str(DP_CLI_CRASH), "--run-name", run_name,
+            "--checkpoint-every", str(DP_CLI_EVERY), "--run-name", run_name,
             "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1", "--process-id", "0", *extra]
-    hb = os.path.join(root, "outputs", run_name, "heartbeat-0")
-    old = os.stat(hb).st_mtime_ns if os.path.exists(hb) else None
     t0 = time.perf_counter()
     with open(dev_log, "w") as logf:
         proc = subprocess.Popen(argv, cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT)
-    return proc, t0, hb, old
+    return proc, t0, os.path.join(root, "outputs", run_name, "heartbeat-0")
 
 
 def heartbeat_mtime(hb):
@@ -4341,69 +4375,164 @@ def heartbeat_mtime(hb):
         return None
 
 
-def dp_cli_wait(proc, t0, hb, old, log_path):
-    """Wait for a ``dp_cli_run`` process: its return code, seconds, the
-    seconds to its loop's start (the heartbeat's first beat) and to its
-    first step (the next), read from the file's mtime every 20 ms, and its
-    output."""
-    first, seen = {}, old
-    while proc.poll() is None:
-        require(time.perf_counter() - t0 < DP_CLI_TIMEOUT_S, f"train_cli passed {DP_CLI_TIMEOUT_S} s")
-        mtime = heartbeat_mtime(hb)
-        if mtime is not None and mtime != seen:
-            seen = mtime
-            first.setdefault("ready_s" if "ready_s" not in first else "first_step_s", time.perf_counter() - t0)
+def dp_cli_wait(runs, logs):
+    """Wait for ``dp_cli_run`` processes (``{key: run}``, their logs
+    ``{key: path}``), polling them together every 20 ms: ``{key: (return
+    code, seconds, the seconds to its loop's start (the heartbeat's first
+    beat) and to its first step (the next), read from the file's mtime, its
+    output)}``."""
+    first = {k: {} for k in runs}
+    seen = dict.fromkeys(runs)
+    done = {}
+    while len(done) < len(runs):
+        for k, (proc, t0, hb) in runs.items():
+            if k in done:
+                continue
+            require(time.perf_counter() - t0 < DP_CLI_TIMEOUT_S, f"train_cli {k} passed {DP_CLI_TIMEOUT_S} s")
+            mtime = heartbeat_mtime(hb)
+            if mtime is not None and mtime != seen[k]:
+                seen[k] = mtime
+                first[k].setdefault("ready_s" if "ready_s" not in first[k] else "first_step_s",
+                                    time.perf_counter() - t0)
+            if proc.poll() is not None:
+                with open(logs[k]) as f:
+                    done[k] = (proc.returncode, time.perf_counter() - t0, first[k], f.read())
         time.sleep(0.02)
+    return done
+
+
+def preflight_start():
+    """``scripts/torch_preflight.py`` on the card in a subprocess, started
+    (it runs beside 12c's two training runs: none is timed against the
+    others). Returns what :func:`preflight_finish` reads."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(repo, "build", f"chip_smoke_preflight_{os.getpid()}.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, os.path.join(repo, "scripts", "torch_preflight.py"), *PREFLIGHT_ARGS],
+                                cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=logf,
+                                stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter(), log_path
+
+
+def preflight_finish(proc, t0, log_path):
+    """12c: the preflight exited 0 (GO) and its device probe names the card."""
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
     with open(log_path) as f:
-        text = f.read()
-    return proc.returncode, time.perf_counter() - t0, first, text
+        report = f.read().strip().splitlines()
+    os.remove(log_path)
+    out = {"s": time.perf_counter() - t0, "rc": rc, "report": report}
+    require(rc == 0, f"12c: preflight exited {rc}: {report[-20:]}")
+    name = torch.cuda.get_device_name(0)
+    require(any(line.startswith("[PASS] device") and name in line for line in report),
+            f"12c: the device probe does not name {name}: {report}")
+    log(f"phase 12c preflight: {out}")
+    return out
 
 
-def dp_cli(dev):
-    """12c: ``train_cli --coordinator 127.0.0.1:<port> --num-processes 1
-    --process-id 0`` (NCCL, a world of one), full-width Mixer-B/32 on the
-    ``fused_mlp`` route, global batch DP_CLI_B: an uninterrupted run of
-    DP_CLI_STEPS steps beside one that the drill stops after DP_CLI_CRASH
-    (a checkpoint at that step), then resumed by a third process; the two
-    runs' final checkpoints bit for bit."""
+def drill_start(root, tag, args):
+    """A ``train_cli`` command line (``args``, a world of one) started twice
+    in ``root``: straight through, and under ``scripts/torch_supervise.py
+    --max-restarts 1`` with the crash drill (its child dies after step
+    DP_SUPERVISED_CRASH, past its checkpoint at DP_CLI_EVERY). Returns
+    ``({key: run}, {key: log path})``."""
+    runs, logs = {}, {}
+    for kind, extra in (("straight", []), ("drill", ["--crash-after-steps", str(DP_SUPERVISED_CRASH)])):
+        key = f"{tag}_{kind}"
+        logs[key] = os.path.join(root, f"{key}.log")
+        runs[key] = dp_cli_run(root, key, args, extra, logs[key], supervised=kind == "drill")
+    return runs, logs
+
+
+def drill_checked(root, tag, res):
+    """The straight run of ``tag`` exited 0; its supervised drill crashed
+    once, was restarted once, resumed from its checkpoint and exited 0,
+    exported, each step's loss written once. Returns the summary and both
+    runs' directories of the last checkpoint (straight, drill)."""
+    rc, s, first, text = res[f"{tag}_straight"]
+    require(rc == 0, f"{tag}: train_cli (uninterrupted) exited {rc}: {text[-3000:]}")
+    out = {"straight": {"s": s, **first}}
+    rc, s, _, text = res[f"{tag}_drill"]
+    require(rc == 0, f"{tag}: the supervisor exited {rc}: {text[-3000:]}")
+    restarts = [line for line in text.splitlines() if "restarting in" in line]
+    require(len(restarts) == 1 and "progressed=True" in restarts[0] and "fault injection" in text,
+            f"{tag}: restarts {restarts}: {text[-3000:]}")
+    require("run complete after 2 launch(es)" in text, f"{tag}: {text[-2000:]}")
+    run = os.path.join(root, "outputs", f"{tag}_drill")
+    ckpts = sorted(int(e) for e in os.listdir(os.path.join(run, "checkpoints")) if e.isdigit())
+    require(ckpts[-1] == DP_CLI_STEPS and os.path.exists(os.path.join(run, "export", "model.pt")),
+            f"{tag}: checkpoints {ckpts}")
+    with open(os.path.join(run, "runs", "metrics.jsonl")) as f:
+        steps = [r["step"] for r in map(json.loads, f) if r["name"] == "Loss"]
+    require(sorted(steps) == list(range(1, DP_CLI_STEPS + 1)), f"{tag}: loss steps {steps}")
+    out["drill"] = {"s": s, "restarts": len(restarts), "checkpoints": ckpts, "restart_line": restarts[0]}
+    ck = [os.path.join(root, "outputs", f"{tag}_{k}", "checkpoints") for k in ("straight", "drill")]
+    require(sorted(os.listdir(ck[1])) == sorted(os.listdir(ck[0])),
+            f"{tag}: checkpoints {os.listdir(ck[1])} vs {os.listdir(ck[0])}")
+    return out, [os.path.join(c, str(DP_CLI_STEPS)) for c in ck]
+
+
+def cli_drills(dev):
+    """12c and 13c, side by side (separate processes on the card, a world
+    of one each over NCCL), with ``scripts/torch_preflight.py`` beside them.
+
+    12c: ``train_cli --coordinator 127.0.0.1:<port> --num-processes 1
+    --process-id 0``, full-width Mixer-B/32 on the ``fused_mlp`` route; 13c:
+    the same with ``--fsdp`` (sharded checkpoints). Each at global batch
+    DP_CLI_B for DP_CLI_STEPS steps, a checkpoint every DP_CLI_EVERY: the
+    straight run beside its supervised crash drill (:func:`drill_start`);
+    the two runs' last checkpoints bit for bit (12c: ``model.pt`` and the
+    step and Adam moments of ``train_state.pt``; 13c: ``shard-0.pt``'s
+    parameters, moments and step). Returns (12c's summary, 13c's)."""
     import shutil
     import tempfile
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
-    out = {"argv": DP_CLI_ARGS, "B": DP_CLI_B, "steps": DP_CLI_STEPS, "crash_after": DP_CLI_CRASH}
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_drills_")
+    dp = {"argv": DP_CLI_ARGS, "B": DP_CLI_B, "steps": DP_CLI_STEPS, "crash_after": DP_SUPERVISED_CRASH}
+    shard = {"argv": SHARD_CLI_ARGS, "B": DP_CLI_B, "steps": DP_CLI_STEPS, "crash_after": DP_SUPERVISED_CRASH}
     try:
-        runs = {"straight": dp_cli_run(root, "straight", [], os.path.join(root, "straight.log")),
-                "crashed": dp_cli_run(root, "resumed", ["--crash-after-steps", str(DP_CLI_CRASH)],
-                                      os.path.join(root, "crashed.log"))}
-        res = {k: dp_cli_wait(*runs[k], os.path.join(root, f"{k}.log")) for k in runs}
-        rc, s, first, text = res["straight"]
-        require(rc == 0, f"train_cli (uninterrupted) exited {rc}: {text[-3000:]}")
-        out["straight"] = {"s": s, **first}
-        rc, s, first, text = res["crashed"]
-        require(rc != 0 and "fault injection" in text, f"the crash drill: exit {rc}: {text[-3000:]}")
-        out["crashed"] = {"rc": rc, "s": s}
-        rc, s, first, text = dp_cli_wait(*dp_cli_run(root, "resumed", [], os.path.join(root, "resume.log")),
-                                         os.path.join(root, "resume.log"))
-        require(rc == 0, f"train_cli (resumed) exited {rc}: {text[-3000:]}")
-        out["resumed"] = {"s": s, **first}
-        ck = {k: os.path.join(root, "outputs", r, "checkpoints") for k, r in (("straight", "straight"),
-                                                                               ("resumed", "resumed"))}
-        require(sorted(os.listdir(ck["resumed"])) == sorted(os.listdir(ck["straight"])),
-                f"checkpoints {os.listdir(ck['resumed'])} vs {os.listdir(ck['straight'])}")
-        last = str(DP_CLI_STEPS)
+        preflight = preflight_start()
+        runs, logs = drill_start(root, "dp", DP_CLI_ARGS)
+        more = drill_start(root, "fsdp", SHARD_CLI_ARGS)
+        runs.update(more[0])
+        logs.update(more[1])
+        res = dp_cli_wait(runs, logs)
+        dp["preflight"] = preflight_finish(*preflight)
+
+        got, (a, b) = drill_checked(root, "dp", res)
+        dp.update(got)
         for f in ("model.pt", "train_state.pt"):
-            a = torch.load(os.path.join(ck["resumed"], last, f), map_location="cpu", weights_only=True)
-            b = torch.load(os.path.join(ck["straight"], last, f), map_location="cpu", weights_only=True)
+            x = torch.load(os.path.join(b, f), map_location="cpu", weights_only=True)
+            y = torch.load(os.path.join(a, f), map_location="cpu", weights_only=True)
             if f == "train_state.pt":
-                require(a["step"] == b["step"] == DP_CLI_STEPS, f"steps {a['step']} / {b['step']}")
-                a = {f"{w}.{k}": v for w in ("mu", "nu") for k, v in a["opt_state"][w].items()}
-                b = {f"{w}.{k}": v for w in ("mu", "nu") for k, v in b["opt_state"][w].items()}
-            same_bits(a, b, f"12c resumed {f}")
-        out["resume_bit_for_bit"] = True
+                require(x["step"] == y["step"] == DP_CLI_STEPS, f"steps {x['step']} / {y['step']}")
+                x = {f"{w}.{k}": v for w in ("mu", "nu") for k, v in x["opt_state"][w].items()}
+                y = {f"{w}.{k}": v for w in ("mu", "nu") for k, v in y["opt_state"][w].items()}
+            same_bits(x, y, f"12c resumed {f}")
+        dp["resume_bit_for_bit"] = True
+
+        got, (a, b) = drill_checked(root, "fsdp", res)
+        shard.update(got)
+        files = sorted(os.listdir(a))
+        require(files == ["layout.json", "meta.json", "shard-0.pt"], f"13c checkpoint files {files}")
+        x, y = (torch.load(os.path.join(d, "shard-0.pt"), map_location="cpu", weights_only=True) for d in (b, a))
+        require(x["step"] == y["step"] == DP_CLI_STEPS, f"steps {x['step']} / {y['step']}")
+        flat = [{**{f"model.{k}": v for k, v in z["model"].items()},
+                 **{f"{w}.{k}": v for w in ("mu", "nu") for k, v in z["opt_state"][w].items()}} for z in (x, y)]
+        same_bits(*flat, "13c resumed shard-0.pt")
+        with open(os.path.join(a, "layout.json")) as f:
+            lay = json.load(f)
+        shard["layout"] = {k: lay[k] for k in ("world", "n_data", "n_model", "fsdp")}
+        shard["resume_bit_for_bit"] = True
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log(f"phase 12c: {out}")
-    return out
+    log(f"phase 12c: {dp}")
+    log(f"phase 13c: {shard}")
+    return dp, shard
 
 
 def dp_serving(dev, counters):
@@ -4532,7 +4661,7 @@ def dp_path(dev, counters):
         emit({"dp_syncbn_siglip": out["syncbn_siglip"]})
     finally:
         dist.destroy_process_group()
-    out["cli"] = dp_cli(dev)
+    out["cli"], out["shard_cli"] = cli_drills(dev)
     out["serving"] = dp_serving(dev, counters)
     out["launches"] = {"train": out["train"]["launches"], "serving": out["serving"]["launches"]}
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4727,55 +4856,10 @@ def shard_tp(dev, counters, mesh):
     return out
 
 
-def shard_cli(dev):
-    """13c: ``train_cli --fsdp`` (full-width Mixer-B/32, a world of one over
-    NCCL, global batch DP_CLI_B): DP_CLI_STEPS steps straight, beside a run
-    the drill stops after its checkpoint at step DP_CLI_CRASH, resumed by a
-    third process; the two runs' last sharded checkpoints (``shard-0.pt``:
-    the parameters, Adam's moments, the step) bit for bit; seconds to the
-    first step."""
-    import shutil
-    import tempfile
-
-    root = tempfile.mkdtemp(prefix="chip_smoke_shard_cli_")
-    out = {"argv": SHARD_CLI_ARGS, "B": DP_CLI_B, "steps": DP_CLI_STEPS, "crash_after": DP_CLI_CRASH}
-    try:
-        runs = {"straight": dp_cli_run(root, "straight", [], os.path.join(root, "straight.log"), SHARD_CLI_ARGS),
-                "crashed": dp_cli_run(root, "resumed", ["--crash-after-steps", str(DP_CLI_CRASH)],
-                                      os.path.join(root, "crashed.log"), SHARD_CLI_ARGS)}
-        res = {k: dp_cli_wait(*runs[k], os.path.join(root, f"{k}.log")) for k in runs}
-        rc, s, first, text = res["straight"]
-        require(rc == 0, f"train_cli --fsdp (uninterrupted) exited {rc}: {text[-3000:]}")
-        out["straight"] = {"s": s, **first}
-        rc, s, first, text = res["crashed"]
-        require(rc != 0 and "fault injection" in text, f"the crash drill: exit {rc}: {text[-3000:]}")
-        out["crashed"] = {"rc": rc, "s": s}
-        rc, s, first, text = dp_cli_wait(*dp_cli_run(root, "resumed", [], os.path.join(root, "resume.log"),
-                                                     SHARD_CLI_ARGS), os.path.join(root, "resume.log"))
-        require(rc == 0, f"train_cli --fsdp (resumed) exited {rc}: {text[-3000:]}")
-        out["resumed"] = {"s": s, **first}
-        last = os.path.join("checkpoints", str(DP_CLI_STEPS))
-        files = sorted(os.listdir(os.path.join(root, "outputs", "straight", last)))
-        require(files == ["layout.json", "meta.json", "shard-0.pt"], f"13c checkpoint files {files}")
-        a, b = (torch.load(os.path.join(root, "outputs", r, last, "shard-0.pt"), map_location="cpu",
-                           weights_only=True) for r in ("resumed", "straight"))
-        require(a["step"] == b["step"] == DP_CLI_STEPS, f"steps {a['step']} / {b['step']}")
-        flat = [{**{f"model.{k}": v for k, v in x["model"].items()},
-                 **{f"{w}.{k}": v for w in ("mu", "nu") for k, v in x["opt_state"][w].items()}} for x in (a, b)]
-        same_bits(*flat, "13c resumed shard-0.pt")
-        with open(os.path.join(root, "outputs", "straight", last, "layout.json")) as f:
-            lay = json.load(f)
-        out["layout"] = {k: lay[k] for k in ("world", "n_data", "n_model", "fsdp")}
-        out["resume_bit_for_bit"] = True
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    log(f"phase 13c: {out}")
-    return out
-
-
-def shard_path(dev, counters):
+def shard_path(dev, counters, cli):
     """Phase 13: FSDP2 and tensor parallelism in a world of one over NCCL,
-    every part with the counters read around its own calls."""
+    every part with the counters read around its own calls; ``cli``: 13c's
+    summary (its runs went beside 12c's, :func:`cli_drills`)."""
     import inspect
 
     import torch.distributed as dist
@@ -4799,7 +4883,7 @@ def shard_path(dev, counters):
         emit({"shard_tp": out["tp"]})
     finally:
         dist.destroy_process_group()
-    out["cli"] = shard_cli(dev)
+    out["cli"] = cli
     out["launches"] = out["fsdp"]["launches"]
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -4816,11 +4900,6 @@ PP_CHAIN = (1, 3)  # 14a: chained_train_time's chain lengths, in two turns
 PP_LOSS_TOL = 1e-5  # |dloss| / loss: read 0 (a microbatch's forward is row for row the batch's)
 PP_NORM_TOL = 1e-4  # |d grad_norm| / grad_norm: read at most 1.4e-5
 PP_GRAD_TOL = 2e-2  # each parameter's gradient, relative Frobenius (NULL_GRAD as phase 4): read at most 5.7e-3
-SUPERVISE_ARGS = ["--synthetic", "--preset", "mixer-b32", "--no-validators", "--epochs", "1",
-                  "--global-batch-size", "32", "--steps-per-epoch", "4", "--checkpoint-every", "2",
-                  "--crash-after-steps", "3"]
-SUPERVISE_TIMEOUT_S = 300
-PREFLIGHT_ARGS = ["--preset", "mixer-b32", "--devices", "1", "--global-batch", "256", "--hbm-gib", "80"]
 
 
 def state_bytes(state) -> int:
@@ -4975,44 +5054,6 @@ def pp_route(dev, counters, mesh, route, batches):
     return out, launches
 
 
-def supervise_drill():
-    """14b: ``scripts/torch_supervise.py --max-restarts 1 --backoff 0 --``
-    ``train_cli`` (full-width Mixer-B/32, SUPERVISE_ARGS): the drill crashes
-    the child after step 3, the supervisor restarts it once, it resumes from
-    its checkpoint at step 2 and exits 0, saved at step 4 and exported, each
-    step's loss written once. Returns the seconds and the launches counted."""
-    import shutil
-    import tempfile
-
-    repo = os.path.dirname(os.path.abspath(__file__))
-    root = tempfile.mkdtemp(prefix="chip_smoke_supervise_")
-    argv = [sys.executable, os.path.join(repo, "scripts", "torch_supervise.py"), "--max-restarts", "1", "--backoff",
-            "0", "--", *SUPERVISE_ARGS, *DP_CLI_DEVICE, "--run-name", "drill"]
-    out = {"argv": SUPERVISE_ARGS}
-    try:
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv, cwd=root, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
-                              timeout=SUPERVISE_TIMEOUT_S)
-        out["s"] = time.perf_counter() - t0
-        text = proc.stdout + proc.stderr
-        require(proc.returncode == 0, f"14b: the supervisor exited {proc.returncode}: {text[-3000:]}")
-        restarts = [line for line in proc.stdout.splitlines() if "restarting in" in line]
-        require(len(restarts) == 1 and "progressed=True" in restarts[0] and "fault injection" in text,
-                f"14b: restarts {restarts}: {text[-3000:]}")
-        require("run complete after 2 launch(es)" in proc.stdout, f"14b: {proc.stdout[-2000:]}")
-        run = os.path.join(root, "outputs", "drill")
-        ckpts = sorted(int(e) for e in os.listdir(os.path.join(run, "checkpoints")) if e.isdigit())
-        require(ckpts[-1] == 4 and os.path.exists(os.path.join(run, "export", "model.pt")), f"14b: {ckpts}")
-        with open(os.path.join(run, "runs", "metrics.jsonl")) as f:
-            steps = [r["step"] for r in map(json.loads, f) if r["name"] == "Loss"]
-        require(sorted(steps) == [1, 2, 3, 4], f"14b: loss steps {steps}")
-        out.update(restarts=len(restarts), checkpoints=ckpts, restart_line=restarts[0])
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    log(f"phase 14b: {out}")
-    return out
-
-
 def plan_vs_peak(train, routes):
     """14c: ``utils/memory.plan`` (one card, JAX's activation model) for
     phase 4's cases beside their peaks (less what earlier phases left
@@ -5050,43 +5091,10 @@ def plan_vs_peak(train, routes):
     return out
 
 
-def preflight_start():
-    """14d, started: ``scripts/torch_preflight.py`` on the card in a
-    subprocess (it runs beside 14b's supervisor: neither is timed against
-    the other). Returns what :func:`preflight_finish` reads."""
-    repo = os.path.dirname(os.path.abspath(__file__))
-    log_path = os.path.join(repo, "build", f"chip_smoke_preflight_{os.getpid()}.log")
-    os.makedirs(os.path.dirname(log_path), exist_ok=True)
-    with open(log_path, "w") as logf:
-        proc = subprocess.Popen([sys.executable, os.path.join(repo, "scripts", "torch_preflight.py"), *PREFLIGHT_ARGS],
-                                cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=logf,
-                                stderr=subprocess.STDOUT, text=True)
-    return proc, time.perf_counter(), log_path
-
-
-def preflight_finish(proc, t0, log_path):
-    """14d: the preflight exited 0 (GO) and its device probe names the card."""
-    try:
-        rc = proc.wait(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-    with open(log_path) as f:
-        report = f.read().strip().splitlines()
-    os.remove(log_path)
-    out = {"s": time.perf_counter() - t0, "rc": rc, "report": report}
-    require(rc == 0, f"14d: preflight exited {rc}: {report[-20:]}")
-    name = torch.cuda.get_device_name(0)
-    require(any(line.startswith("[PASS] device") and name in line for line in report),
-            f"14d: the device probe does not name {name}: {report}")
-    log(f"phase 14d: {out}")
-    return out
-
-
 def pp_path(dev, counters, train):
     """Phase 14: pipeline stages (14a, a world of one over NCCL) and the
-    operations tools (14b-d); ``train``: phase 4's summary (None when phase
-    4 did not run)."""
+    memory plan beside the measured peaks (14c); ``train``: phase 4's
+    summary (None when phase 4 did not run)."""
     import torch.distributed as dist
 
     from clip_mixer_tpu_torch import PRESETS
@@ -5119,10 +5127,186 @@ def pp_path(dev, counters, train):
         dist.destroy_process_group()
     out["launches"] = launches
     out["a_s"] = time.perf_counter() - t_phase
-    preflight = preflight_start()
-    out["supervise"] = supervise_drill()
-    out["preflight"] = preflight_finish(*preflight)
     out["memory_plan"] = plan_vs_peak(train, out["routes"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- phase 15: the top-level API, the examples and the synthetic training demo ----
+
+EXAMPLE_PROBS_TOL = 1e-3  # each probability: the zero-shot example's native line (card, f32) against compat (CPU)
+EXAMPLE_ARGS = []  # extra flags for every example (a CPU rehearsal: --device cpu)
+DEMO_ARGS = []  # the demo's flags: its defaults (150 steps at B = 512); a CPU rehearsal cuts them
+DEMO_PRESET = "mixer-b32"
+DEMO_LOSS_DROP = 1.0  # nats: loss_min <= loss_first - 1.0
+DEMO_ACC_MIN = 0.5  # held-out zero-shot accuracy over 16 classes: 8x chance
+
+
+def run_script(counters, rel_path, argv):
+    """Run a script of the checkout in this process as ``__main__`` with
+    ``sys.argv = [script, *argv]``, every launch counter set to 0 first:
+    (its standard output, seconds, the launches)."""
+    import contextlib
+    import io
+    import runpy
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel_path)
+    old_argv, buf = sys.argv, io.StringIO()
+    counters.reset()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = [path, *argv]
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = old_argv
+    out, s, launches = buf.getvalue(), time.perf_counter() - t0, counters.read()
+    free_card()  # the script's models went with its namespace
+    log(f"phase 15 {rel_path} ({s:.1f} s, launches {launches}): {out.strip()}")
+    return out, s, launches
+
+
+def printed_line(out, prefix, what):
+    found = [line for line in out.splitlines() if line.startswith(prefix)]
+    require(len(found) == 1, f"{what}: lines starting {prefix!r}: {found}")
+    return found[0]
+
+
+def printed_probs(line) -> dict:
+    import re
+
+    return {k: float(v) for k, v in re.findall(r"'([^']+)': (?:np\.float32\()?([0-9.e+-]+)", line)}
+
+
+def serving_examples(dev, counters, root):
+    """15a: a seed-0 full-width Mixer-B/32 export with ``fused_mlp=True``
+    written by the top-level ``save_pretrained``; ``load`` of it against the
+    same weights on the plain route (per-row cosine >= COSINE_MIN, ``ln_mlp``
+    launched); then the three serving examples run on it in this process,
+    each launching ``ln_mlp``, with the lines they print checked."""
+    import re
+
+    import clip_mixer_tpu_torch as clip
+    from clip_mixer_tpu_torch import CLIP, PRESETS
+
+    out = {}
+    cfg = PRESETS["mixer-b32"].replace(fused_mlp=True)
+    export = os.path.join(root, "export")
+    t0 = time.perf_counter()
+    clip.save_pretrained(CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0)), cfg, export)
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, loaded_cfg, _ = clip.load(export, device=dev)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    require(loaded_cfg == cfg, f"15a: loaded config {loaded_cfg}")
+    plain = CLIP(cfg.replace(fused_mlp=False), device=dev)
+    plain.load_state_dict(model.state_dict())
+    images = np.random.default_rng(15).integers(0, 256, (8, cfg.image_resolution, cfg.image_resolution, 3), np.uint8)
+    counters.reset()
+    got = mixer_features(model, images, TEXTS[:8])
+    out["load_launches"] = counters.read()
+    require(out["load_launches"]["ln_mlp"] > 0, "15a: the loaded fused_mlp model never launched ln_mlp")
+    want = mixer_features(plain, images, TEXTS[:8])
+    out["cosine"] = {"image": row_cosine(got[0], want[0]), "text": row_cosine(got[1], want[1])}
+    require(min(out["cosine"].values()) >= COSINE_MIN, f"15a: loaded against the plain route {out['cosine']}")
+    del model, plain
+    free_card()
+
+    launches = {}
+    text, s, launches["zero_shot"] = run_script(counters, "examples/torch_zero_shot.py", [export, *EXAMPLE_ARGS])
+    native = printed_probs(printed_line(text, "native:", "15a zero-shot"))
+    compat = printed_probs(printed_line(text, "compat:", "15a zero-shot"))
+    gap = max(abs(native[k] - compat[k]) for k in native)
+    require(list(native) == list(compat) == ["a diagram", "a dog", "a cat"] and gap <= EXAMPLE_PROBS_TOL,
+            f"15a: native {native} against compat {compat}")
+    out["zero_shot"] = {"s": s, "native": native, "compat": compat, "max_gap": gap}
+
+    text, s, launches["serve_embed"] = run_script(counters, "examples/torch_serve_embed.py", [export, *EXAMPLE_ARGS])
+    d = cfg.embed_dim
+    require(printed_line(text, "text:", "15a serve") == f"text: (2, {d}) image: (3, {d})", f"15a: {text}")
+    top2 = re.findall(r"'label': '(dog|cat|car)'", printed_line(text, "top-2:", "15a serve"))
+    require(len(top2) == 2 and len(set(top2)) == 2, f"15a: top-2 {top2}")
+    require(printed_line(text, "int8 image:", "15a serve") == f"int8 image: (3, {d})", f"15a: {text}")
+    out["serve_embed"] = {"s": s, "top2": top2}
+
+    text, s, launches["semantic_search"] = run_script(counters, "examples/torch_semantic_search.py",
+                                                      [export, *EXAMPLE_ARGS])
+    hits = {}
+    for query in ("a photo of a red square.", "a photo of a silver moon."):
+        hits[query] = re.findall(r"\('([a-z ]+#\d+)', (-?[0-9.]+)\)", printed_line(text, f"{query} -> ", "15a"))
+        require(len(hits[query]) == 3, f"15a: {query} hits {hits[query]}")
+    demo = printed_line(text, "demo probs:", "15a search").split(":", 1)[1]
+    probs = [float(v) for v in demo.replace("[", " ").replace("]", " ").split()]
+    require(len(probs) == 3 and abs(sum(probs) - 1) < 1e-3, f"15a: demo probs {demo}")
+    out["semantic_search"] = {"s": s, "hits": hits, "demo_probs": probs}
+    for name, got in launches.items():
+        require(got["ln_mlp"] > 0, f"15a: {name} never launched ln_mlp")
+    out["launches"] = launches
+    return out
+
+
+def training_examples(counters):
+    """15b: the two training examples (``mixer-debug``, as JAX's) on the card."""
+    out, launches = {}, {}
+    text, s, launches["train_tiny"] = run_script(counters, "examples/torch_train_tiny.py", EXAMPLE_ARGS)
+    line = printed_line(text, "trained + exported to ", "15b train_tiny")
+    require(line.endswith("/export; embed_dim=32, params load OK"), f"15b: {line}")
+    out["train_tiny"] = {"s": s}
+    # the example asserts the locked tower itself: an AssertionError fails the run here
+    text, s, launches["finetune_locked_tower"] = run_script(counters, "examples/torch_finetune_locked_tower.py",
+                                                            EXAMPLE_ARGS)
+    line = printed_line(text, "visual tower locked bitwise:", "15b finetune")
+    require(line == "visual tower locked bitwise: True; text tower fine-tuned: True", f"15b: {line}")
+    out["finetune_locked_tower"] = {"s": s}
+    out["launches"] = launches
+    return out
+
+
+def synthetic_demo(counters):
+    """15c: ``scripts/torch_train_synthetic_demo.py`` at its defaults (full-width
+    Mixer-B/32 with remat, 150 steps at B = 512) in this process: the loss
+    falls by DEMO_LOSS_DROP nats and the held-out zero-shot accuracy reaches
+    DEMO_ACC_MIN."""
+    import runpy
+
+    demo = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                       "torch_train_synthetic_demo.py"))
+    free_card()
+    counters.reset()
+    t0 = time.perf_counter()
+    result = demo["main"](DEMO_ARGS, preset=DEMO_PRESET)
+    torch.cuda.synchronize()
+    out = {"s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counters.read(), "result": result}
+    log(f"phase 15c: {out}")
+    require(result["device"] == torch.cuda.get_device_name(0), f"15c: device {result['device']}")
+    require(result["loss_min"] <= result["loss_first"] - DEMO_LOSS_DROP,
+            f"15c: loss {result['loss_first']} -> min {result['loss_min']}, not down {DEMO_LOSS_DROP}")
+    require(result["zero_shot_acc_16class_heldout"] >= DEMO_ACC_MIN,
+            f"15c: held-out accuracy {result['zero_shot_acc_16class_heldout']} < {DEMO_ACC_MIN}")
+    return out
+
+
+def examples_path(dev, counters):
+    """Phase 15: the top-level API and the examples (15a-b), then the demo (15c)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        out = {"serving": serving_examples(dev, counters, root)}
+        emit({"examples_serving": out["serving"]})
+        out["training"] = training_examples(counters)
+        emit({"examples_training": out["training"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    out["demo"] = synthetic_demo(counters)
+    out["launches"] = {name: sum(got[name] for got in out["serving"]["launches"].values())
+                       for name in counters.read()}
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -5226,7 +5410,7 @@ def main() -> int:
         row["frozen_launches"] = {k: v[row["name"]] for k, v in frozen["launches"].items()}
         row["launches"] += sum(row["frozen_launches"].values())
     dp = dp_path(dev, counters)
-    emit({"dp": {k: v for k, v in dp.items() if k not in ("train", "syncbn_siglip")}})
+    emit({"dp": {k: v for k, v in dp.items() if k not in ("train", "syncbn_siglip", "shard_cli")}})
     for part, names in (("train", ("ln_mlp", "fused_mixer_block")), ("serving", ("ln_mlp", "fused_mixer_block",
                                                                                  "preprocess"))):
         for name in names:
@@ -5234,7 +5418,7 @@ def main() -> int:
     for row in kernels:  # each kernel's launches in phase 12's data-parallel steps and mesh serving, added
         row["dp_launches"] = {part: dp["launches"][part][row["name"]] for part in ("train", "serving")}
         row["launches"] += sum(row["dp_launches"].values())
-    shard = shard_path(dev, counters)
+    shard = shard_path(dev, counters, dp["shard_cli"])
     emit({"shard": {k: v for k, v in shard.items() if k not in ("fsdp", "tp")}})
     for name in ("ln_mlp", "fused_mixer_block"):
         require(shard["launches"][name] > 0, f"phase 13's FSDP steps never launched {name}")
@@ -5249,9 +5433,14 @@ def main() -> int:
     for row in kernels:  # each kernel's launches in phase 14a's checked GPipe steps, added
         row["pp_launches"] = pipe["launches"][row["name"]]
         row["launches"] += row["pp_launches"]
+    examples = examples_path(dev, counters)
+    emit({"examples_demo": examples["demo"]})
+    for row in kernels:  # each kernel's launches by phase 15a's serving examples, added
+        row["examples_launches"] = examples["launches"][row["name"]]
+        row["launches"] += row["examples_launches"]
     emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
           "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"],
-          "pp_s": pipe["phase_s"]})
+          "pp_s": pipe["phase_s"], "examples_s": examples["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,6 @@ from clip_mixer_tpu_torch.models.clip import CLIP
 from clip_mixer_tpu_torch.models.convert import load_torch_checkpoint
 from clip_mixer_tpu_torch.ops.preprocess import make_transform
 from clip_mixer_tpu_torch.text.tokenize import tokenize  # re-exported  # noqa: F401
-from clip_mixer_tpu_torch.train.metrics import require_local
 
 # OpenAI checkpoint registry (the reference's clip.py:31-41); a URL's
 # second-to-last component is the file's SHA256.
@@ -159,6 +158,9 @@ def save_pretrained(model: Union[torch.nn.Module, Mapping[str, torch.Tensor]], c
     """Write ``config.json`` and ``model.pt`` (a CLIP's state dict, or the
     state dict itself, as CPU tensors: floats in f32) to the directory
     ``path``."""
+    # here, not at the top: the package's import (which takes this module) stays free of train/
+    from clip_mixer_tpu_torch.train.metrics import require_local
+
     require_local(path, "export path")
     sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
     os.makedirs(path, exist_ok=True)

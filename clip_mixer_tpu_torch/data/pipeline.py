@@ -73,7 +73,14 @@ class DataSource:
 class SyntheticSource(DataSource):
     """Class-coloured noise images with matching captions, so a model can
     learn the alignment: batch ``b`` of epoch ``e`` draws its classes and
-    noise from ``numpy.random.default_rng((seed, e, b))``."""
+    noise from ``numpy.random.default_rng((seed, e, b))``.
+
+    A batch costs its host over a second of single-threaded numpy at B =
+    512 and 224 px, several times a Mixer-B/32 step on the card, so
+    ``iter_batches`` draws ``WORKERS`` batches at once in threads (numpy's
+    draws and passes release the GIL) and yields them in order."""
+
+    WORKERS = 4
 
     def __init__(
         self,
@@ -100,13 +107,27 @@ class SyntheticSource(DataSource):
     def batches_per_epoch(self) -> Optional[int]:
         return self.n_batches
 
+    def batch(self, epoch: int, b: int) -> Batch:
+        """Batch ``b`` of epoch ``epoch``."""
+        rng = np.random.default_rng((self.seed, epoch, b))
+        classes = rng.integers(0, self.n_classes, self.batch_size)
+        noise = rng.integers(-30, 30, (self.batch_size, self.image_size, self.image_size, 3))
+        # colour + noise lies in [0, 255]: int16 holds every sum the int64 draws make
+        images = np.add(self.colors[classes][:, None, None], noise, dtype=np.int16, casting="unsafe")
+        return Batch(images=np.clip(images, 0, 255, out=images).astype(np.uint8), texts=self.tokens[classes])
+
     def iter_batches(self, epoch: int, start_batch: int = 0) -> Iterator[Batch]:
-        for b in range(start_batch, self.n_batches):
-            rng = np.random.default_rng((self.seed, epoch, b))
-            classes = rng.integers(0, self.n_classes, self.batch_size)
-            noise = rng.integers(-30, 30, (self.batch_size, self.image_size, self.image_size, 3))
-            images = np.clip(self.colors[classes][:, None, None] + noise, 0, 255).astype(np.uint8)
-            yield Batch(images=images, texts=self.tokens[classes])
+        pool = ThreadPoolExecutor(self.WORKERS)
+        try:
+            ahead = deque()
+            for b in range(start_batch, self.n_batches):
+                ahead.append(pool.submit(self.batch, epoch, b))
+                if len(ahead) == self.WORKERS:
+                    yield ahead.popleft().result()
+            while ahead:
+                yield ahead.popleft().result()
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
 
 
 def _concat_consuming(chunks: list) -> np.ndarray:
