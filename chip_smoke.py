@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
 its model loading, its serving CLI, its evals, its real-data sources, its frozen serving programs, its
 release, its C++ tokenizer, its data-parallel, sharded and pipelined training, its operations tools, its
-top-level API, its examples and its synthetic training demo on one CUDA card and check its kernels.
+top-level API, its examples, its synthetic training demo and its dress-shard training runs on one CUDA card
+and check its kernels.
 
     python3 chip_smoke.py
 
@@ -199,9 +200,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and retrieve ids) and the features also to an engine on the same
    weights and artifact with the unfused channel mix (cosine >= 0.999),
    and ``ln_mlp`` must launch 12 times for each call of
-   a tower served bf16 and never for an int8 one; then ``python -m
-   clip_mixer_tpu_torch.serving`` in a subprocess, timed to its first
-   ``/healthz`` and asked one ``/encode_text``.
+   a tower served bf16 and never for an int8 one; and ``python -m
+   clip_mixer_tpu_torch.serving`` in a subprocess, started on the export as
+   soon as it is written (beside 9c-9d), timed to its first ``/healthz``
+   and asked one ``/encode_text``.
 
 10. The evals and the real-data sources, full-width Mixer-B/32 (bf16, seed-0
    weights), every launch counter set to 0 before each part and read after
@@ -231,8 +233,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    each pass timed, and ``metrics.jsonl`` holds the retrieval rows at both;
    beside it ``train_cli --cache-data`` over one glob and a shard with a
    ``.jpg`` member, and ``eval_cli`` with all five validators on the
-   ``--cache-data`` run's export once it is written. The ``.jpg`` member
-   trains under
+   ``--cache-data`` run's export once it is written; 10c's processes run
+   in a background thread beside phase 11 and are checked after it. The
+   ``.jpg`` member trains under
    ``--on-decode-error substitute`` (``mixer-debug``: the decode is tested), which must exit non-zero with the
    ``ImportError`` naming Pillow where Pillow is absent (train where present).
 
@@ -249,14 +252,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    beside live (CUDA events, in turns). 11b: int8 programs from an
    artifact of both towers (phase 6's calibration recipe), bit for bit the
    live int8 engine's, launching nothing. 11c: ``scripts/torch_release.py``
-   on a port export: with its default int8 it must abort (``RELEASE
-   ABORTED``: the text gate fails on these weights, n = 4,096) and freeze
-   nothing; ``--no-int8`` then releases, ``--verify`` passes on it, and
-   ``python -m clip_mixer_tpu_torch.serving`` started on it says it serves
-   frozen programs and answers ``/healthz``, ``/encode_text`` and
-   ``/encode_image`` bit for bit as an in-process ``load_servable``
-   engine; ``train_cli --freeze-serving`` (``mixer-debug``, 2 steps)
-   writes an export that ``load_servable`` serves. 11d: the C++
+   on a port export: ``--no-int8`` releases, and ``python -m
+   clip_mixer_tpu_torch.serving`` starts on the release; beside it, the
+   default int8 release must abort (``RELEASE ABORTED``: the text gate
+   fails on these weights, n = 4,096) and freeze nothing, ``--verify``
+   passes on the float release, and ``train_cli --freeze-serving``
+   (``mixer-debug``, 2 steps) writes an export that ``load_servable``
+   serves; then the CLI says it serves frozen programs and answers
+   ``/healthz``, ``/encode_text`` and ``/encode_image`` bit for bit as an
+   in-process ``load_servable`` engine. 11d: the C++
    tokenizer's build (before phase 1), and the 80,000 ImageNet prompts
    tokenized cold and warm, equal to the Python BPE's tokens, beside its
    time; the engine's tokens on the CPU tests' corpus equal the Python
@@ -288,7 +292,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    for bit; seconds to the first step. 13c's two runs go beside these two,
    and ``scripts/torch_preflight.py --preset mixer-b32 --devices 1
    --global-batch 256 --hbm-gib 80`` beside all four, which must exit 0 and
-   name the card. 12d: ``InferenceEngine(devices=[the card])``
+   name the card; 12c and 13c run in a background thread once 10c's
+   processes have ended, beside phase 11 and 12a, 12b and 12d. 12d:
+   ``InferenceEngine(devices=[the card])``
    and ``export_servable(mesh=[the card])`` of full-width Mixer-B/32 on the
    fused-block and ``fused_mlp`` routes on 256x256 sources: text and image
    features bit for bit the single-device engine's, the bench front end
@@ -344,6 +350,36 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    Mixer-B/32 with remat, 150 steps at B = 512), its JSON line printed: the
    loss down >= 1 nat from its first and the held-out zero-shot accuracy
    >= 0.5 (8x chance).
+16. The dress-shard training runs, in a background thread beside phases
+   13-15 (this process launches nothing for them: the runs train in child
+   processes on the plain route, as the JAX scripts do; every launch
+   counter is set to 0 before the thread is joined and read after). 16a: started at the script's
+   start, beside phases 1-15, ``scripts/torch_make_dress_dataset.py`` writes
+   2,560 samples at 256 px into a temporary directory, 1,024 a shard: two
+   train shards and a held-out shard of 512; the shard count and each
+   shard's members are checked, and four members are, byte for byte, an
+   in-process ``render_sample`` of the same index JPEG-encoded at quality
+   90, checked while 16b and 16c start. 16b and 16c run side by side on
+   the card in that directory once the writer has exited 0, each a
+   process of its own. 16b: ``scripts/torch_dress_rehearsal.py`` on
+   full-width Mixer-B/32 (remat) at a global batch of 2,048 in 4 GradCache
+   microbatches of 512, 4 steps, checkpoints and retrieval validation on
+   the held-out shard every 2, the disk cache, and the child crashed after
+   step 3: the supervisor exits 0 after one restart with progress,
+   checkpoints at 2 and 4, every step's loss written once and finite, the
+   four retrieval series at steps 2 and 4, the cache filled, the card
+   named. 16c: ``scripts/torch_compare_towers.py`` with step times at
+   B = 256 and both legs (``mixer-b32``, ``transformer-b32``) 8 steps at
+   B = 256 on the same shards: both step times finite and positive, the
+   parameter counts the JAX record's (111,060,389 and 151,277,313), both
+   legs exit 0 after 8 steps with their retrieval rows at 4 and 8. The
+   step times are read while 16b and phases 13-15 share the card: no limit
+   is set on them.
+
+Every child process stays in this process's group, so a signal to the
+group reaches it; SIGTERM exits through the ``finally`` blocks, and at exit
+every descendant still running (orphans come back to this process, the
+reaper of its descendants) is killed and reaped.
 
 Standard output ends with a JSON line per phase result, the kernels line,
 the card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -355,6 +391,7 @@ from __future__ import annotations
 import base64
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -362,8 +399,15 @@ import threading
 import time
 import urllib.request
 
-import numpy as np
-import torch
+if __name__ == "__main__":
+    # Where the interpreter cannot write __pycache__ beside an installed package's sources, every process
+    # compiles each module it imports again (~7 s of a child's start on the card's host): this run's bytecode
+    # and its child processes' go under build/ of the checkout.
+    sys.pycache_prefix = os.environ.setdefault(
+        "PYTHONPYCACHEPREFIX", os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pycache"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # operations/s by type.
@@ -462,8 +506,12 @@ def require(ok: bool, what) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+_T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+    """A line on standard error, with the seconds since the script started."""
+    print(f"[chip_smoke {time.perf_counter() - _T_START:.1f} s] {msg}", file=sys.stderr, flush=True)
 
 
 def emit(obj) -> None:
@@ -1760,6 +1808,12 @@ def trainer_path(dev, counters):
 
 INT8_CALIB_N = 128  # calibration images and captions
 INT8_GATE_N = 4096  # each gate's set: the size at which the JAX package's flip ratios are resolved
+# the gates' two large image sets (n, res, seed), drawn by child processes started after the kernels' build
+# (``synthetic_images`` loops over the images in Python: ~12-15 s a set on the card's host)
+GATE_SETS = ((INT8_GATE_N, 224, 3), (INT8_GATE_N, 256, 1))
+GATE_SET_WRITER = ("import sys, numpy as np; from clip_mixer_tpu_torch.evals.quant_gate import synthetic_images; "
+                   "n, res, seed = map(int, sys.argv[1:4]); np.save(sys.argv[4], synthetic_images(n, res, seed=seed))")
+GATE_SET_TIMEOUT_S = 300
 INT8_GATE_BATCH = 256
 INT8_BANK_ROWS = 262144  # x 512 f32: 512 MB on the card
 INT8_RETRIEVE_TOP = 5
@@ -1796,6 +1850,47 @@ def gate_captions():
     """The text gate's set: 4096 fixed captions, 16 adjectives x 4 templates
     x the 64 gate classes."""
     return [t.format(a, c) for a in GATE_ADJECTIVES for t in GATE_CAPTION_TEMPLATES for c in GATE_CLASSES]
+
+
+_GATE_IMAGES = {}  # (n, res, seed) -> the array, or (the process drawing it, its file)
+
+
+def gate_images_start():
+    """Start one child process for each of GATE_SETS, which draws the set
+    with ``quant_gate.synthetic_images`` and saves it into a temporary
+    directory (removed, with the processes if they still run, at exit)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gate_images_")
+    atexit.register(shutil.rmtree, root, True)
+    for n, res, seed in GATE_SETS:
+        path = os.path.join(root, f"{n}_{res}_{seed}.npy")
+        started = cli_start([sys.executable, "-c", GATE_SET_WRITER, str(n), str(res), str(seed), path], root,
+                            f"{path}.log")
+        atexit.register(cli_stop, started)
+        _GATE_IMAGES[(n, res, seed)] = started, path
+
+
+def gate_images(n, res, seed):
+    """A copy of ``quant_gate.synthetic_images(n, res, seed=seed)``, drawn once
+    a run: read from its child process's file for GATE_SETS, else drawn
+    here on first use."""
+    from clip_mixer_tpu_torch.evals.quant_gate import synthetic_images
+
+    key = (n, res, seed)
+    got = _GATE_IMAGES.get(key)
+    if isinstance(got, tuple):
+        started, path = got
+        rc, _, _ = cli_finish(started, GATE_SET_TIMEOUT_S)
+        require(rc == 0, f"the process drawing the gate images {key} exited {rc}")
+        got = np.load(path)
+        os.remove(path)
+    elif got is None:
+        got = synthetic_images(n, res, seed=seed)
+    _GATE_IMAGES[key] = got
+    return got.copy()
 
 
 def npy_b64(images):
@@ -2071,7 +2166,7 @@ def int8_path(dev, counters):
     try:
         free_card()
         model = CLIP(cfg, device=dev, generator=torch.Generator().manual_seed(0))
-        calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+        calib = gate_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
         artifact = os.path.join(root, "scales.npz")
         counters.reset()
 
@@ -2088,7 +2183,7 @@ def int8_path(dev, counters):
         out["artifact_bytes"] = os.path.getsize(artifact)
         b = InferenceEngine(model)
         b.enable_int8(calibration=artifact)
-        probe = gates.synthetic_images(100, cfg.image_resolution, seed=5)
+        probe = gate_images(100, cfg.image_resolution, seed=5)
         img_a, txt_a = a.encode_image_arrays(probe), a.encode_text(TEXTS)
         check_features(img_a, 100, cfg.embed_dim, "int8 encode_image_arrays(100)")
         check_features(txt_a, len(TEXTS), cfg.embed_dim, "int8 encode_text(40)")
@@ -2109,18 +2204,18 @@ def int8_path(dev, counters):
         classifier = gates.build_float_classifier(model, GATE_CLASSES, GATE_TEMPLATES, batch_size=INT8_GATE_BATCH)
         gate_out = {}
         t0 = time.perf_counter()
-        imgs = gates.synthetic_images(INT8_GATE_N, cfg.image_resolution, seed=3)
+        imgs = gate_images(INT8_GATE_N, cfg.image_resolution, seed=3)
         gate_out["image"] = gates.noise_floor_gate(model, imgs, classifier, calibrate_n=INT8_CALIB_N,
                                                    batch_size=INT8_GATE_BATCH)
         gate_out["image"]["s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        src = gates.synthetic_images(INT8_GATE_N, 256, seed=1)
+        src = gate_images(INT8_GATE_N, 256, seed=1)
         gate_out["frontend_planar"] = gates.frontend_noise_floor_gate(
             model, src, classifier, calibrate_n=INT8_CALIB_N, batch_size=INT8_GATE_BATCH, front_end="planar")
         gate_out["frontend_planar"]["s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         f32 = gates.float32_twin(model)
-        bank_imgs = torch.from_numpy(gates.synthetic_images(512, cfg.image_resolution, seed=2)).to(dev)
+        bank_imgs = torch.from_numpy(gate_images(512, cfg.image_resolution, seed=2)).to(dev)
         from clip_mixer_tpu_torch.models.clip import l2_normalize
         from clip_mixer_tpu_torch.ops.preprocess import normalize_images
 
@@ -2152,10 +2247,10 @@ def int8_path(dev, counters):
 
         # the serving surface of an int8 engine on 256x256 sources (planar front end)
         c = InferenceEngine(model, input_hw=(256, 256))
-        c.enable_int8(gates.synthetic_images(INT8_CALIB_N, 256, seed=0), CAPTIONS if int8_text else None)
+        c.enable_int8(gate_images(INT8_CALIB_N, 256, seed=0), CAPTIONS if int8_text else None)
         c.load_classifier(GATE_CLASSES, GATE_TEMPLATES)
         c.warmup()
-        http_imgs = gates.synthetic_images(12, 256, seed=8)
+        http_imgs = gate_images(12, 256, seed=8)
         health, metrics = int8_http(c, http_imgs, TEXTS[:6], {"image": "int8", "text": "int8" if int8_text else "float"})
         out["http"] = {"healthz": health, "metrics": metrics}
         out["bank"] = int8_device_bank(c, dev)
@@ -2249,12 +2344,12 @@ def vit_cosines(model, n):
     on the card against f32 on the CPU, and ``model`` (bf16 on the card)
     against f32 on the card."""
     from clip_mixer_tpu_torch import CLIP
-    from clip_mixer_tpu_torch.evals.quant_gate import float32_twin, synthetic_images
+    from clip_mixer_tpu_torch.evals.quant_gate import float32_twin
     from clip_mixer_tpu_torch.ops.preprocess import normalize_images
     from clip_mixer_tpu_torch.text.tokenize import tokenize
 
     cfg = model.cfg
-    images = normalize_images(torch.from_numpy(synthetic_images(n, cfg.image_resolution, seed=13)))
+    images = normalize_images(torch.from_numpy(gate_images(n, cfg.image_resolution, seed=13)))
     text = torch.from_numpy(tokenize(TEXTS[:n], cfg.context_length, truncate=True))
     cpu = CLIP(cfg.replace(compute_dtype="float32"), device="cpu")
     cpu.load_state_dict(model.state_dict())
@@ -2398,7 +2493,7 @@ def vit_int8(dev, counters, model):
     root = tempfile.mkdtemp(prefix="chip_smoke_vit_int8_")
     try:
         counters.reset()
-        calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+        calib = gate_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
         artifact = os.path.join(root, "scales.npz")
         a = InferenceEngine(model)
         a.enable_int8(calib, CAPTIONS, save_calibration=artifact)
@@ -2406,7 +2501,7 @@ def vit_int8(dev, counters, model):
         qvis, qtext = a._image_path[1], a._text_path[1]
         b = InferenceEngine(model)
         b.enable_int8(calibration=artifact)
-        probe = gates.synthetic_images(32, cfg.image_resolution, seed=5)
+        probe = gate_images(32, cfg.image_resolution, seed=5)
         img_a, txt_a = a.encode_image_arrays(probe), a.encode_text(TEXTS)
         check_features(img_a, 32, cfg.embed_dim, "ViT int8 encode_image_arrays(32)")
         check_features(txt_a, len(TEXTS), cfg.embed_dim, "ViT int8 encode_text(40)")
@@ -2431,14 +2526,14 @@ def vit_int8(dev, counters, model):
         classifier = gates.build_float_classifier(model, GATE_CLASSES, GATE_TEMPLATES, batch_size=INT8_GATE_BATCH)
         gate_out = {}
         t0 = time.perf_counter()
-        imgs = gates.synthetic_images(INT8_GATE_N, cfg.image_resolution, seed=3)
+        imgs = gate_images(INT8_GATE_N, cfg.image_resolution, seed=3)
         gate_out["image"] = gates.noise_floor_gate(model, imgs, classifier, calibrate_n=INT8_CALIB_N,
                                                    batch_size=INT8_GATE_BATCH)
         gate_out["image"]["s"] = time.perf_counter() - t0
         del imgs
         t0 = time.perf_counter()
         f32 = gates.float32_twin(model)
-        bank_imgs = torch.from_numpy(gates.synthetic_images(512, cfg.image_resolution, seed=2)).to(dev)
+        bank_imgs = torch.from_numpy(gate_images(512, cfg.image_resolution, seed=2)).to(dev)
         with torch.inference_mode():
             bank = l2_normalize(f32.encode_image(normalize_images(bank_imgs, dtype=torch.float32))).cpu().numpy()
         del f32, bank_imgs
@@ -2457,7 +2552,7 @@ def vit_int8(dev, counters, model):
         out["served_int8"] = served
         c = InferenceEngine(model, input_hw=(256, 256))
         if any(served.values()):
-            c.enable_int8(gates.synthetic_images(INT8_CALIB_N, 256, seed=0) if served["image"] else None,
+            c.enable_int8(gate_images(INT8_CALIB_N, 256, seed=0) if served["image"] else None,
                           CAPTIONS if served["text"] else None)
         kinds = {k: "int8" if v else "float" for k, v in served.items()}
         require(c.path_kinds == kinds, f"ViT serving engine: {c.path_kinds}, gates say {kinds}")
@@ -2722,11 +2817,11 @@ def rn_cosines(model, n):
     planted fault (one block's bn3 skipped) in f32 on the card against the
     CPU, which must fail the first bound."""
     from clip_mixer_tpu_torch import CLIP
-    from clip_mixer_tpu_torch.evals.quant_gate import float32_twin, synthetic_images
+    from clip_mixer_tpu_torch.evals.quant_gate import float32_twin
     from clip_mixer_tpu_torch.ops.preprocess import normalize_images
 
     cfg = model.cfg
-    images = normalize_images(torch.from_numpy(synthetic_images(n, cfg.image_resolution, seed=13)))
+    images = normalize_images(torch.from_numpy(gate_images(n, cfg.image_resolution, seed=13)))
     cpu = CLIP(cfg.replace(compute_dtype="float32"), device="cpu")
     cpu.load_state_dict(model.state_dict())
     card = float32_twin(model)
@@ -2771,7 +2866,7 @@ def rn_int8(dev, counters, model):
     root = tempfile.mkdtemp(prefix="chip_smoke_rn_int8_")
     try:
         counters.reset()
-        calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+        calib = gate_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
         artifact = os.path.join(root, "scales.npz")
         a = InferenceEngine(model)
         t0 = time.perf_counter()
@@ -2800,7 +2895,7 @@ def rn_int8(dev, counters, model):
 
         b = InferenceEngine(model)
         b.enable_int8(calibration=artifact)
-        probe = gates.synthetic_images(32, cfg.image_resolution, seed=5)
+        probe = gate_images(32, cfg.image_resolution, seed=5)
         img_a, txt_a = a.encode_image_arrays(probe), a.encode_text(TEXTS)
         check_features(img_a, 32, cfg.embed_dim, "RN int8 encode_image_arrays(32)")
         check_features(txt_a, len(TEXTS), cfg.embed_dim, "RN int8 encode_text(40)")
@@ -2815,14 +2910,14 @@ def rn_int8(dev, counters, model):
         classifier = gates.build_float_classifier(model, GATE_CLASSES, GATE_TEMPLATES, batch_size=INT8_GATE_BATCH)
         gate_out = {}
         t0 = time.perf_counter()
-        imgs = gates.synthetic_images(INT8_GATE_N, cfg.image_resolution, seed=3)
+        imgs = gate_images(INT8_GATE_N, cfg.image_resolution, seed=3)
         gate_out["image"] = gates.noise_floor_gate(model, imgs, classifier, calibrate_n=INT8_CALIB_N,
                                                    batch_size=INT8_GATE_BATCH)
         gate_out["image"]["s"] = time.perf_counter() - t0
         del imgs
         t0 = time.perf_counter()
         f32 = gates.float32_twin(model)
-        bank_imgs = torch.from_numpy(gates.synthetic_images(512, cfg.image_resolution, seed=2)).to(dev)
+        bank_imgs = torch.from_numpy(gate_images(512, cfg.image_resolution, seed=2)).to(dev)
         with torch.inference_mode():
             bank = l2_normalize(f32.encode_image(normalize_images(bank_imgs, dtype=torch.float32))).cpu().numpy()
         del f32, bank_imgs
@@ -2840,7 +2935,7 @@ def rn_int8(dev, counters, model):
         out["served_int8"] = served
         c = InferenceEngine(model, input_hw=(256, 256))
         if any(served.values()):
-            c.enable_int8(gates.synthetic_images(INT8_CALIB_N, 256, seed=0) if served["image"] else None,
+            c.enable_int8(gate_images(INT8_CALIB_N, 256, seed=0) if served["image"] else None,
                           CAPTIONS if served["text"] else None)
         kinds = {k: "int8" if v else "float" for k, v in served.items()}
         require(c.path_kinds == kinds, f"RN serving engine: {c.path_kinds}, gates say {kinds}")
@@ -3080,50 +3175,92 @@ def tokenize_texts(texts, context_length):
     return tokenize(texts, context_length, truncate=True)
 
 
+_PORTS_GIVEN = set()
+_PORTS_LOCK = threading.Lock()
+
+
 def free_port() -> int:
+    """A free local port, never one this run handed out before (phases in
+    background threads ask for ports at the same time as the main one)."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    with _PORTS_LOCK:
+        while True:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            if port not in _PORTS_GIVEN:
+                _PORTS_GIVEN.add(port)
+                return port
 
 
-def cli_subprocess(export, dev, log_path):
-    """``python -m clip_mixer_tpu_torch.serving`` on the card in a process of
-    its own (its standard error to ``log_path``): ms to its first answered
-    /healthz, and one /encode_text."""
+def serving_cli_start(model, log_path, out_path=None, timeout=60):
+    """Start ``python -m clip_mixer_tpu_torch.serving --model <model>`` on the
+    card in a process of its own on a free port (standard error to
+    ``log_path``, standard output to ``out_path`` or nowhere), and a thread
+    that asks its /healthz from the start, so the ms to its first answer
+    hold whenever the caller comes back (:func:`serving_cli_ready`)."""
     from clip_mixer_tpu_torch.client import ServingClient
 
     port = free_port()
     repo = os.path.dirname(os.path.abspath(__file__))
-    with open(log_path, "w") as err:
+    with open(log_path, "w") as err, open(out_path or os.devnull, "w") as stdout:
         t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "clip_mixer_tpu_torch.serving", "--model", export,
-                                 "--port", str(port), *SERVE_ARGS], cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
-    try:
-        client = ServingClient(f"http://127.0.0.1:{port}", timeout=60, retries=0)
-        health = None
-        while health is None:
-            if proc.poll() is not None:
-                with open(log_path) as f:
-                    require(False, f"the serving CLI exited {proc.returncode}: {f.read()[-4000:]}")
-            require(time.perf_counter() - t0 < SERVE_TIMEOUT_S, "the serving CLI never answered /healthz")
+        proc = subprocess.Popen([sys.executable, "-m", "clip_mixer_tpu_torch.serving", "--model", model,
+                                 "--port", str(port), *SERVE_ARGS], cwd=repo, stdout=stdout, stderr=err)
+    client = ServingClient(f"http://127.0.0.1:{port}", timeout=timeout, retries=0)
+    first = {}
+
+    def poll():
+        while proc.poll() is None and time.perf_counter() - t0 < SERVE_TIMEOUT_S:
             try:
                 health = client.healthz()
             except Exception:
                 time.sleep(0.2)
-        first_ms = (time.perf_counter() - t0) * 1e3
+                continue
+            first.update(health=health, ms=(time.perf_counter() - t0) * 1e3)
+            return
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    return proc, client, thread, first, log_path
+
+
+def serving_cli_ready(started):
+    """(its client, its first /healthz, ms from its start to that answer)
+    of a :func:`serving_cli_start` process; fails when it exited or never
+    answered within SERVE_TIMEOUT_S."""
+    proc, client, thread, first, log_path = started
+    thread.join()
+    if "health" not in first:
+        with open(log_path) as f:
+            require(False, f"the serving CLI (exit {proc.poll()}) never answered /healthz: {f.read()[-4000:]}")
+    return client, first["health"], first["ms"]
+
+
+def serving_cli_stop(started) -> int:
+    proc = started[0]
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    return proc.returncode
+
+
+def cli_subprocess(started, dev):
+    """The serving CLI of :func:`serving_cli_start` (started on the export
+    as soon as it was written, beside 9c-9d): ms to its first answered
+    /healthz, and one /encode_text."""
+    try:
+        client, health, first_ms = serving_cli_ready(started)
         require(health["status"] == "ok" and health["device"].split(":")[0] == dev.type, health)
         feats = client.encode_text(TEXTS[:2])
         check_features(feats, 2, health["embed_dim"], "CLI subprocess /encode_text")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-    return {"first_healthz_ms": first_ms, "rc_after_terminate": proc.returncode}
+        rc = serving_cli_stop(started)
+    return {"first_healthz_ms": first_ms, "rc_after_terminate": rc}
 
 
 def cli_requests(server, engine, ref, plain, images, counters):
@@ -3229,6 +3366,7 @@ def load_cli_path(dev, counters, text_int8=False):
     cfg = PRESETS["mixer-b32"]
     root = tempfile.mkdtemp(prefix="chip_smoke_load_")
     out = {}
+    serving = None
     rng = np.random.default_rng(11)
     model_images = rng.integers(0, 256, (CLI_IMAGES, cfg.image_resolution, cfg.image_resolution, 3), dtype=np.uint8)
     try:
@@ -3284,6 +3422,7 @@ def load_cli_path(dev, counters, text_int8=False):
         # 9c: the tools: the artifact (text only if its gate passed), then the bank
         export = f"{root}/export"
         save_pretrained(loaded, cfg.replace(fused_mlp=True), export)
+        serving = serving_cli_start(export, f"{root}/serve_stderr.log")  # 9d's subprocess starts beside 9c-9d
         art = f"{root}/scales.npz"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3335,8 +3474,10 @@ def load_cli_path(dev, counters, text_int8=False):
         out["expected_ln_mlp"] = want
         del server, engine, ref, ref_model, plain, plain_model
         free_card()
-        out["cli_subprocess"] = cli_subprocess(export, dev, f"{root}/serve_stderr.log")
+        out["cli_subprocess"] = cli_subprocess(serving, dev)
     finally:
+        if serving is not None:
+            serving_cli_stop(serving)
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -3635,15 +3776,105 @@ def sources_and_retrieval(dev, counters, cfg, root):
     return out, globs
 
 
-def cli_start(argv, cwd, log_path):
-    """Start ``python -m <argv>`` in ``cwd`` with this repo on the path,
-    standard output to ``<log_path>.out`` and standard error to
-    ``log_path``; returns what :func:`cli_finish` reads."""
+def descendants(pid):
+    """The pids of the living descendants of ``pid``, read from /proc, parents
+    before their children (a supervisor's child, in a session of its own,
+    among them)."""
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            parent[int(entry)] = int(stat[stat.rindex(")") + 2:].split()[1])
+    out, todo = [], [pid]
+    while todo:
+        kids = [c for c, p in parent.items() if p == todo[0]]
+        out += kids
+        todo = todo[1:] + kids
+    return out
+
+
+def kill_tree(pid, spare_root=False):
+    """SIGKILL every descendant of ``pid``, and ``pid`` unless ``spare_root``."""
+    import signal
+
+    for p in ([] if spare_root else [pid]) + descendants(pid):
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def adopt_orphans():
+    """Make this process the reaper of its orphaned descendants (Linux
+    ``PR_SET_CHILD_SUBREAPER``), so that :func:`stop_all_children` finds a
+    grandchild whose parent is gone; and let SIGTERM exit through the
+    ``finally`` blocks and the ``atexit`` handlers."""
+    import ctypes
+    import signal
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)  # 36: PR_SET_CHILD_SUBREAPER
+    except (OSError, AttributeError):
+        pass
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(128 + signum))
+
+
+def stop_all_children(wait_s=30.0):
+    """Kill every process this one started that still runs, and reap them
+    (registered with ``atexit`` first, so it runs last)."""
+    kill_tree(os.getpid(), spare_root=True)
+    end = time.monotonic() + wait_s
+    while time.monotonic() < end:
+        try:
+            if os.waitpid(-1, os.WNOHANG) == (0, 0):
+                time.sleep(0.05)
+        except ChildProcessError:
+            return
+
+
+class Background:
+    """``fn(*args)`` in a daemon thread of this process: for a phase that
+    waits on child processes and reads their files, and launches nothing on
+    the card itself. :meth:`result` joins it and returns its value or
+    raises what it raised. A daemon, so a failure elsewhere ends the run at
+    once (``atexit`` then stops the children)."""
+
+    def __init__(self, fn, *args):
+        self.t0, self.t_end, self.value, self.error = time.perf_counter(), None, None, None
+
+        def run():
+            try:
+                self.value = fn(*args)
+            except BaseException as e:  # noqa: BLE001 - re-raised by result()
+                self.error = e
+            self.t_end = time.perf_counter()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self):
+        """(its value, the seconds this call waited for it)."""
+        t0 = time.perf_counter()
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.value, time.perf_counter() - t0
+
+
+def cli_start(cmd, cwd, log_path):
+    """Start ``cmd`` in ``cwd`` with this repo on the path, in this process's
+    group (a signal to the group reaches it), standard output to
+    ``<log_path>.out`` and standard error to ``log_path``; returns what
+    :func:`cli_finish` reads."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
     t0 = time.perf_counter()
     with open(f"{log_path}.out", "w") as out, open(log_path, "w") as err:
-        proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=cwd, env=env, stdout=out, stderr=err, text=True)
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=err, text=True)
     ended = {}  # its exit time, for its seconds, whenever it is read
 
     def wait():
@@ -3652,23 +3883,30 @@ def cli_start(argv, cwd, log_path):
 
     waiter = threading.Thread(target=wait, daemon=True)
     waiter.start()
-    return proc, argv, log_path, t0, waiter, ended
+    return proc, cmd, log_path, t0, waiter, ended
+
+
+def cli_stop(started):
+    """Kill a :func:`cli_start` process and all it started, if it still runs."""
+    proc = started[0]
+    if proc.poll() is None:
+        kill_tree(proc.pid)
+        proc.wait()
 
 
 def cli_finish(started, timeout=EVAL_CLI_TIMEOUT_S):
-    """(rc, stdout, seconds) of a :func:`cli_start` process, killed past
-    ``timeout`` seconds from its start."""
-    proc, argv, log_path, t0, waiter, ended = started
+    """(rc, stdout, seconds) of a :func:`cli_start` process, it and all it
+    started killed past ``timeout`` seconds from its start."""
+    proc, cmd, log_path, t0, waiter, ended = started
     waiter.join(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
-    if proc.poll() is None:
-        proc.kill()
-        waiter.join()
+    cli_stop(started)
+    waiter.join()
     s = ended["t"] - t0
     with open(f"{log_path}.out") as f:
         stdout = f.read()
     if proc.returncode:
         with open(log_path) as f:
-            log(f"{argv[0]} exited {proc.returncode}: stdout {stdout[-3000:]} stderr {f.read()[-3000:]}")
+            log(f"{' '.join(cmd[1:3])} exited {proc.returncode}: stdout {stdout[-3000:]} stderr {f.read()[-3000:]}")
     return proc.returncode, stdout, s
 
 
@@ -3711,18 +3949,19 @@ def clis(cfg, root, globs):
 
     out = {}
     pillow = jpg_shard(root)
-    run = ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size", str(EVAL_CLI_B),
+    train_cli = [sys.executable, "-m", "clip_mixer_tpu_torch.train_cli"]
+    run = [*train_cli, *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size", str(EVAL_CLI_B),
            "--steps-per-epoch", "8", "--validate-every", "4", "--checkpoint-every", "8", "--keep-checkpoints", "1",
            "--verbose", "--data", f"{globs['alpha']}::2", "--data", f"{globs['omega']}::1",
            "--val-data", globs["heldout"], "--run-name", "mix"]
     started = {
         "train": cli_start(run, root, f"{root}/train_cli.err"),
         "cache": cli_start(
-            ["clip_mixer_tpu_torch.train_cli", *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size",
+            [*train_cli, *EVAL_CLI_ARGS, *EVAL_CLI_DEVICE, "--global-batch-size",
              str(EVAL_CLI_B), "--steps-per-epoch", "2", "--checkpoint-every", "2", "--no-validators",
              "--data", globs["alpha"], "--cache-data", f"{root}/cache", "--run-name", "cached"],
             root, f"{root}/cache_cli.err"),
-        "jpg": cli_start(["clip_mixer_tpu_torch.train_cli", "--preset", JPG_PRESET, "--epochs", "1",
+        "jpg": cli_start([*train_cli, "--preset", JPG_PRESET, "--epochs", "1",
                           *EVAL_CLI_DEVICE, "--global-batch-size", "2", "--steps-per-epoch", "1", "--no-validators",
                           "--on-decode-error", "substitute", "--data", f"{root}/jpg/*.tar", "--run-name", "jpg"],
                          root, f"{root}/jpg.err"),
@@ -3730,8 +3969,9 @@ def clis(cfg, root, globs):
     rc, _, out["cache_cli_s"] = cli_finish(started["cache"])
     require(rc == 0 and len(os.listdir(f"{root}/cache")) == 2, f"train_cli --cache-data exited {rc}")
     started["eval"] = cli_start(
-        ["clip_mixer_tpu_torch.eval_cli", "--model", f"{root}/outputs/cached/export", "--validators", "sts", "sst2",
-         "mnist", "imagenet", "retrieval", "--val-data", globs["heldout"], *EVAL_CLI_DEVICE],
+        [sys.executable, "-m", "clip_mixer_tpu_torch.eval_cli", "--model", f"{root}/outputs/cached/export",
+         "--validators", "sts", "sst2", "mnist", "imagenet", "retrieval", "--val-data", globs["heldout"],
+         *EVAL_CLI_DEVICE],
         root, f"{root}/eval_cli.err")
 
     rc, stdout, out["train_cli_s"] = cli_finish(started["train"])
@@ -3771,7 +4011,9 @@ def clis(cfg, root, globs):
 
 
 def eval_path(dev, counters):
-    """Phase 10: the evals and the real-data sources on full-width Mixer-B/32."""
+    """Phase 10: the evals and the real-data sources on full-width Mixer-B/32.
+    10c's processes go on in the background, beside phase 11:
+    :func:`eval_finish` waits for them and checks them."""
     import shutil
     import tempfile
 
@@ -3788,11 +4030,28 @@ def eval_path(dev, counters):
         emit({"eval_head": out["head"]})
         out["sources"], globs = sources_and_retrieval(dev, counters, cfg, root)
         emit({"eval_sources": out["sources"]})
-        out["clis"] = clis(cfg, root, globs)
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    out["launches"] = {**out["head"]["launches"], **out["sources"]["launches"]}
+    out["pending"] = Background(clis, cfg, root, globs), root
+    out["phase_s"] = time.perf_counter() - t_phase  # in this process; eval_finish adds its wait
+    return out
+
+
+def eval_finish(out):
+    """10c's processes (:func:`clis`), waited for and checked, and phase 10's
+    directory removed."""
+    import shutil
+
+    run, root = out.pop("pending")
+    try:
+        out["clis"], waited = run.result()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    out["launches"] = {**out["head"]["launches"], **out["sources"]["launches"]}
-    out["phase_s"] = time.perf_counter() - t_phase
+    out["clis_s"] = run.t_end - run.t0
+    out["clis_wait_s"] = waited
+    out["phase_s"] += waited
     return out
 
 
@@ -3903,12 +4162,11 @@ def frozen_int8(dev, counters, model, root):
     """11b: int8 programs from an artifact of both towers (phase 6's
     calibration recipe), bit for bit the live int8 engine's."""
     from clip_mixer_tpu_torch import aot
-    from clip_mixer_tpu_torch.evals import quant_gate as gates
     from clip_mixer_tpu_torch.serving import InferenceEngine
 
     cfg = model.cfg
     artifact = os.path.join(root, "scales.npz")
-    calib = gates.synthetic_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
+    calib = gate_images(INT8_CALIB_N, cfg.image_resolution, seed=0)
     InferenceEngine(model).enable_int8(calib, CAPTIONS, save_calibration=artifact)
     out_dir = os.path.join(root, "int8")
     t0 = time.perf_counter()
@@ -3920,7 +4178,7 @@ def frozen_int8(dev, counters, model, root):
     live = InferenceEngine(model, batch_buckets=FROZEN_SMALL_BUCKETS)
     live.enable_int8(calibration=artifact)
     require(frozen.path_kinds == live.path_kinds == {"image": "int8", "text": "int8"}, frozen.path_kinds)
-    probe = gates.synthetic_images(7, cfg.image_resolution, seed=5)
+    probe = gate_images(7, cfg.image_resolution, seed=5)
     counters.reset()
     for what, fn in (("image", lambda e: e.encode_image_arrays(probe)), ("text", lambda e: e.encode_text(TEXTS[:5]))):
         got = fn(frozen)
@@ -3932,46 +4190,19 @@ def frozen_int8(dev, counters, model, root):
     return out
 
 
-def serve_frozen_subprocess(release, engine, images, log_path):
-    """``python -m clip_mixer_tpu_torch.serving --model <release>`` in a
-    process of its own: it must say it serves frozen programs, and its
-    /healthz, /encode_text and /encode_image must answer bit for bit as
-    ``engine`` (an in-process ``load_servable`` of the same release)."""
-    from clip_mixer_tpu_torch.client import ServingClient
-
-    port = free_port()
-    repo = os.path.dirname(os.path.abspath(__file__))
-    out_path = log_path + ".out"
-    with open(log_path, "w") as err, open(out_path, "w") as stdout:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "clip_mixer_tpu_torch.serving", "--model", release,
-                                 "--port", str(port), *SERVE_ARGS], cwd=repo, stdout=stdout, stderr=err)
-    try:
-        client = ServingClient(f"http://127.0.0.1:{port}", timeout=120, retries=0)
-        health = None
-        while health is None:
-            if proc.poll() is not None:
-                with open(log_path) as f:
-                    require(False, f"the serving CLI exited {proc.returncode}: {f.read()[-4000:]}")
-            require(time.perf_counter() - t0 < SERVE_TIMEOUT_S, "the serving CLI never answered /healthz")
-            try:
-                health = client.healthz()
-            except Exception:
-                time.sleep(0.2)
-        first_ms = (time.perf_counter() - t0) * 1e3
-        with open(out_path) as f:
-            said = f.read()
-        require(f"frozen programs loaded from {release}/servable" in said and "frozen=True" in said, said)
-        require(health["frozen"] is True and health["paths"] == engine.path_kinds, health)
-        text = client.encode_text(TEXTS[:5])
-        image = client.encode_image_files([base64.b64decode(b) for b in npy_b64(images)])
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+def serve_frozen_subprocess(started, release, engine, images):
+    """The serving CLI of :func:`serving_cli_start` on ``release`` (started
+    as soon as the release was written, beside the rest of 11c): it must say
+    it serves frozen programs, and its /healthz, /encode_text and
+    /encode_image must answer bit for bit as ``engine`` (an in-process
+    ``load_servable`` of the same release)."""
+    client, health, first_ms = serving_cli_ready(started)
+    with open(started[-1] + ".out") as f:
+        said = f.read()
+    require(f"frozen programs loaded from {release}/servable" in said and "frozen=True" in said, said)
+    require(health["frozen"] is True and health["paths"] == engine.path_kinds, health)
+    text = client.encode_text(TEXTS[:5])
+    image = client.encode_image_files([base64.b64decode(b) for b in npy_b64(images)])
     require(np.array_equal(text, engine.encode_text(TEXTS[:5])), "the CLI's /encode_text differs from load_servable's")
     require(np.array_equal(image, engine.encode_image_arrays(images)),
             "the CLI's /encode_image differs from load_servable's")
@@ -3980,9 +4211,10 @@ def serve_frozen_subprocess(release, engine, images, log_path):
 
 def frozen_release(dev, counters, model, root):
     """11c: scripts/torch_release.py on a port export of the plain model:
-    int8 aborts on the text gate with nothing frozen; --no-int8 releases;
-    --verify passes; the serving CLI serves it frozen; train_cli
-    --freeze-serving writes an export that load_servable serves."""
+    --no-int8 releases, and the serving CLI starts on the release; beside
+    it, int8 aborts on the text gate with nothing frozen, --verify passes
+    and train_cli --freeze-serving writes an export that load_servable
+    serves; then the CLI must serve the release frozen."""
     import contextlib
     import io
 
@@ -4010,48 +4242,56 @@ def frozen_release(dev, counters, model, root):
                 code = e.code if e.code is not None else 0
         return code, said.getvalue(), time.perf_counter() - t0
 
-    aborted = os.path.join(root, "release_int8")
-    code, said, s = release("--model", src, "--out", aborted, "--gate-n", str(RELEASE_GATE_N), "--buckets", buckets)
-    require(code not in (0, None) and "RELEASE ABORTED" in str(code), f"the int8 release did not abort: {code} {said}")
-    require(not os.path.exists(os.path.join(aborted, "servable")), "the aborted release froze programs")
-    require(not os.path.exists(os.path.join(aborted, "RELEASE.json")), "the aborted release wrote RELEASE.json")
-    out["int8_release"] = {"s": s, "exit": str(code), "gates": [line for line in said.splitlines() if "gate" in line]}
-    log(f"phase 11c int8 release: {out['int8_release']}")
-
     rel = os.path.join(root, "release")
     code, said, s = release("--model", src, "--out", rel, "--no-int8", "--buckets", buckets)
     require(code == 0, f"the --no-int8 release failed: {code} {said}")
     out["float_release_s"] = s
-    code, said, s = release("--out", rel, "--verify")
-    require(code == 0 and "VERIFY OK: float release" in said, f"--verify: {code} {said}")
-    out["verify"] = {"s": s, "said": said.strip()}
-
-    engine = aot.load_servable(rel, device=dev)
-    images = np.random.default_rng(11).integers(0, 256, (4, cfg.image_resolution, cfg.image_resolution, 3),
-                                                dtype=np.uint8)
-    counters.reset()
-    out["cli"] = serve_frozen_subprocess(rel, engine, images, os.path.join(root, "cli.log"))
-    out["cli_check_launches"] = counters.read()  # the in-process engine's: the plain route, none
-
-    # train_cli in this process (it writes outputs/<run-name> under the working directory)
-    from clip_mixer_tpu_torch import train_cli
-
-    run = os.path.join(root, "train")
-    os.makedirs(run)
-    cwd = os.getcwd()
-    t0 = time.perf_counter()
+    log_path = os.path.join(root, "cli.log")
+    serving = serving_cli_start(rel, log_path, log_path + ".out", timeout=120)  # beside the rest of 11c
     try:
-        os.chdir(run)
-        with contextlib.redirect_stdout(io.StringIO()):
-            train_cli.main([*FROZEN_TRAIN_ARGS, *SERVE_ARGS, "--run-name", "frozen"])
+        aborted = os.path.join(root, "release_int8")
+        code, said, s = release("--model", src, "--out", aborted, "--gate-n", str(RELEASE_GATE_N),
+                                "--buckets", buckets)
+        require(code not in (0, None) and "RELEASE ABORTED" in str(code),
+                f"the int8 release did not abort: {code} {said}")
+        require(not os.path.exists(os.path.join(aborted, "servable")), "the aborted release froze programs")
+        require(not os.path.exists(os.path.join(aborted, "RELEASE.json")), "the aborted release wrote RELEASE.json")
+        out["int8_release"] = {"s": s, "exit": str(code),
+                               "gates": [line for line in said.splitlines() if "gate" in line]}
+        log(f"phase 11c int8 release: {out['int8_release']}")
+
+        code, said, s = release("--out", rel, "--verify")
+        require(code == 0 and "VERIFY OK: float release" in said, f"--verify: {code} {said}")
+        out["verify"] = {"s": s, "said": said.strip()}
+
+        # train_cli in this process (it writes outputs/<run-name> under the working directory)
+        from clip_mixer_tpu_torch import train_cli
+
+        run = os.path.join(root, "train")
+        os.makedirs(run)
+        cwd = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(run)
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_cli.main([*FROZEN_TRAIN_ARGS, *SERVE_ARGS, "--run-name", "frozen"])
+        finally:
+            os.chdir(cwd)
+        s = time.perf_counter() - t0
+        export = os.path.join(run, "outputs", "frozen", "export")
+        trained = aot.load_servable(export, device=dev)
+        feats = trained.encode_text(TEXTS[:3])
+        check_features(feats, 3, trained.cfg.embed_dim, "train_cli --freeze-serving export")
+        out["train_cli"] = {"s": s, "buckets": aot.read_manifest(export)["buckets"], "frozen": trained.frozen}
+
+        engine = aot.load_servable(rel, device=dev)
+        images = np.random.default_rng(11).integers(0, 256, (4, cfg.image_resolution, cfg.image_resolution, 3),
+                                                    dtype=np.uint8)
+        counters.reset()
+        out["cli"] = serve_frozen_subprocess(serving, rel, engine, images)
+        out["cli_check_launches"] = counters.read()  # the in-process engine's: the plain route, none
     finally:
-        os.chdir(cwd)
-    s = time.perf_counter() - t0
-    export = os.path.join(run, "outputs", "frozen", "export")
-    trained = aot.load_servable(export, device=dev)
-    feats = trained.encode_text(TEXTS[:3])
-    check_features(feats, 3, trained.cfg.embed_dim, "train_cli --freeze-serving export")
-    out["train_cli"] = {"s": s, "buckets": aot.read_manifest(export)["buckets"], "frozen": trained.frozen}
+        serving_cli_stop(serving)
     log(f"phase 11c: {out}")
     return out
 
@@ -4636,10 +4876,19 @@ def dp_serving(dev, counters):
     return out
 
 
-def dp_path(dev, counters):
+def drills_after(prior, dev):
+    """12c and 13c (:func:`cli_drills`) once ``prior`` (a :class:`Background`:
+    phase 10c's processes) has ended, so that the two batches of processes
+    follow each other beside phases 11 and 12."""
+    prior.thread.join()
+    return cli_drills(dev)
+
+
+def dp_path(dev, counters, drills):
     """Phase 12: the data-parallel layer in a world of one over NCCL (the
     card's host has one card; NCCL takes no two ranks on one card), every
-    part with the counters read around its own calls."""
+    part with the counters read around its own calls; ``drills``: the
+    :class:`Background` of :func:`drills_after`, joined at the end."""
     import torch.distributed as dist
 
     from clip_mixer_tpu_torch.parallel.dist import maybe_initialize_distributed
@@ -4661,8 +4910,9 @@ def dp_path(dev, counters):
         emit({"dp_syncbn_siglip": out["syncbn_siglip"]})
     finally:
         dist.destroy_process_group()
-    out["cli"], out["shard_cli"] = cli_drills(dev)
     out["serving"] = dp_serving(dev, counters)
+    (out["cli"], out["shard_cli"]), out["drills_wait_s"] = drills.result()
+    out["drills_s"] = drills.t_end - drills.t0
     out["launches"] = {"train": out["train"]["launches"], "serving": out["serving"]["launches"]}
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -5311,6 +5561,201 @@ def examples_path(dev, counters):
     return out
 
 
+# ---- phase 16: the dress-shard training runs ------------------------------------
+
+DRESS_N = 2560  # 16a: samples at 256 px, 1,024 a shard: two train shards and a held-out shard of 512
+DRESS_PER_SHARD = 1024
+DRESS_SIZE = 256
+DRESS_CHECKED = (0, 1023, 1024, 2559)  # 16a: members held against an in-process render and encode
+DRESS_QUALITY = 90  # the script's JPEG quality
+DRESS_ARGS = ["--global-batch", "2048", "--accum", "4", "--n-samples", "2048", "--steps", "4", "--checkpoint-every",
+              "2", "--validate-every", "2", "--crash-after-steps", "3"]  # 16b: GradCache, 512-row microbatches
+DRESS_STEPS = 4
+DRESS_CHECKPOINTS = [2, 4]
+DRESS_VALIDATED = [2, 4]
+COMPARE_ARGS = ["--batch", "256", "--step-time-batch", "256", "--steps", "8", "--steps-per-epoch", "4",
+                "--validate-every", "4"]  # 16c
+COMPARE_STEPS = 8
+COMPARE_VALIDATED = [4, 8]
+DRESS_DEVICE = []  # both scripts' extra flags (a CPU rehearsal: --device cpu)
+DRESS_KW = {}  # {"rehearsal" | "compare": main()'s keywords} (a CPU rehearsal: small presets); else the command line
+TWIN_PARAMS = {"mixer-b32": 111060389, "transformer-b32": 151277313}  # the JAX package's COMPARE_TOWERS.json
+DRESS_TIMEOUT_S = 600
+RETRIEVAL_SERIES = ["Retrieval I->T R@1", "Retrieval I->T R@5", "Retrieval T->I R@1", "Retrieval T->I R@5"]
+# runs a script's main(argv, **keywords): argv = [script, keywords as JSON, *its arguments]
+MAIN_RUNNER = ("import json, runpy, sys; path, kw = sys.argv[1], json.loads(sys.argv[2]); "
+               "sys.exit(runpy.run_path(path)['main'](sys.argv[3:], **kw))")
+
+
+def script_cmd(rel_path, argv, kw=None):
+    """The command line of a script of this checkout: as a user runs it,
+    or through its ``main(argv, **kw)`` when ``kw`` is given."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel_path)
+    if kw:
+        return [sys.executable, "-c", MAIN_RUNNER, path, json.dumps(kw), *argv]
+    return [sys.executable, path, *argv]
+
+
+def dress_shards_start():
+    """16a, started at the script's start beside the card's phases:
+    ``scripts/torch_make_dress_dataset.py`` writes DRESS_N samples into a
+    temporary directory, which goes, with the process if it still runs,
+    when the script ends."""
+    import atexit
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dress_")
+    started = cli_start(script_cmd("scripts/torch_make_dress_dataset.py",
+                                   ["--out", os.path.join(root, "dress"), "--n", str(DRESS_N), "--size",
+                                    str(DRESS_SIZE), "--samples-per-shard", str(DRESS_PER_SHARD)]),
+                        root, os.path.join(root, "shards.log"))
+    atexit.register(shutil.rmtree, root, True)
+    atexit.register(cli_stop, started)  # runs first
+    return root, started
+
+
+def dress_shards_checked(root, s):
+    """16a (the writer exited 0 after ``s`` seconds): three shards of the
+    expected counts; members DRESS_CHECKED are, byte for byte, an
+    in-process ``render_sample`` of the same index JPEG-encoded at the
+    script's quality, and its caption."""
+    import glob
+    import io
+    import runpy
+    import tarfile
+
+    from PIL import Image
+
+    shards = sorted(glob.glob(os.path.join(root, "dress", "*.tar")))
+    n_shards = -(-DRESS_N // DRESS_PER_SHARD)
+    require([os.path.basename(p) for p in shards] == [f"{i:05d}.tar" for i in range(n_shards)], f"16a: {shards}")
+    members = []
+    for i, path in enumerate(shards):
+        with tarfile.open(path) as tar:
+            members.append({m.name: tar.extractfile(m).read() for m in tar.getmembers()})
+        want = min(DRESS_PER_SHARD, DRESS_N - i * DRESS_PER_SHARD)
+        require(len(members[i]) == 2 * want, f"16a: {path} holds {len(members[i])} members, not {2 * want}")
+    render = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                         "torch_make_dress_dataset.py"))["render_sample"]
+    for i in DRESS_CHECKED:
+        image, caption = render(0, i, DRESS_SIZE)
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, "JPEG", quality=DRESS_QUALITY)
+        got = members[i // DRESS_PER_SHARD]
+        require(got[f"{i:09d}.jpg"] == buf.getvalue() and got[f"{i:09d}.txt"] == caption.encode(),
+                f"16a: member {i} is not render_sample({i}) encoded")
+    return {"s": s, "shards": len(shards), "bytes": sum(os.path.getsize(p) for p in shards),
+            "checked": list(DRESS_CHECKED)}
+
+
+def metric_series(run_dir, name):
+    with open(os.path.join(run_dir, "runs", "metrics.jsonl")) as f:
+        return [(r["step"], r["value"]) for r in map(json.loads, f) if r["name"] == name]
+
+
+def retrieval_checked(what, retrieval, steps):
+    require(sorted(retrieval) == RETRIEVAL_SERIES, f"{what}: retrieval series {sorted(retrieval)}")
+    for name, series in retrieval.items():
+        require([s for s, _ in series] == steps and all(math.isfinite(v) for _, v in series),
+                f"{what}: {name} {series}, not at steps {steps}")
+
+
+def rehearsal_checked(root, rc, text, s):
+    """16b: the rehearsal exited 0; its supervisor restarted the crashed
+    child once, with progress; checkpoints at DRESS_CHECKPOINTS, every step's
+    loss written once and finite, the four retrieval series at
+    DRESS_VALIDATED, the cache filled, the card named."""
+    require(rc == 0, f"16b: the rehearsal exited {rc}: {text[-3000:]}")
+    restarts = [line for line in text.splitlines() if "restarting in" in line]
+    require(len(restarts) == 1 and "progressed=True" in restarts[0] and "fault injection" in text,
+            f"16b: restarts {restarts}: {text[-3000:]}")
+    with open(os.path.join(root, "TRAIN_DRESS_TORCH.json")) as f:
+        doc = json.load(f)
+    require(doc["supervisor_exit"] == 0 and doc["steps_completed"] == DRESS_STEPS and doc["restarts"] == 1
+            and doc["checkpoint_steps"] == DRESS_CHECKPOINTS, f"16b: {doc}")
+    losses = metric_series(os.path.join(root, "outputs", "dress"), "Loss")
+    require(sorted(st for st, _ in losses) == list(range(1, DRESS_STEPS + 1))
+            and all(math.isfinite(v) for _, v in losses), f"16b: losses {losses}")
+    retrieval_checked("16b", doc["retrieval"], DRESS_VALIDATED)
+    cache = os.listdir(os.path.join(root, "cache_rehearsal"))
+    require(any(n.startswith("images-") for n in cache), f"16b: the cache holds {cache}")
+    require(doc["device"] == torch.cuda.get_device_name(0), f"16b: device {doc['device']}")
+    return {"s": s, "restart_line": restarts[0], "cache": sorted(cache),
+            **{k: doc[k] for k in ("wall_seconds", "loss_first", "loss_last", "imgs_per_sec_median_steady",
+                                   "peak_mem_gb", "retrieval", "device", "power_limit")}}
+
+
+def compare_checked(root, rc, text, s):
+    """16c: the comparison exited 0; both step times finite and positive,
+    the parameter counts the JAX record's; both legs exited 0 after
+    COMPARE_STEPS steps with their retrieval rows at COMPARE_VALIDATED."""
+    require(rc == 0, f"16c: the comparison exited {rc}: {text[-3000:]}")
+    with open(os.path.join(root, "COMPARE_TOWERS_TORCH.json")) as f:
+        doc = json.load(f)
+    st = doc["step_time"]
+    for name, params in TWIN_PARAMS.items():
+        sec = st[name]["sec_per_step"]
+        require(math.isfinite(sec) and sec > 0 and st[name]["params"] == params, f"16c: {name} {st[name]}")
+        leg = doc["curves"][name]
+        require(leg["exit"] == 0 and leg["steps_completed"] == COMPARE_STEPS
+                and all(math.isfinite(v) for _, v in leg["loss_curve"]), f"16c: {name} leg {leg}")
+        retrieval_checked(f"16c {name}", leg["retrieval"], COMPARE_VALIDATED)
+    require(doc["device"] == torch.cuda.get_device_name(0), f"16c: device {doc['device']}")
+    return {"s": s, "step_time": st,
+            "curves": {k: {f: v[f] for f in ("wall_seconds", "loss_first", "loss_last", "peak_mem_gb")}
+                       for k, v in doc["curves"].items()}}
+
+
+def dress_path(root, shards):
+    """Phase 16, in a background thread beside phases 13-15 (:class:`Background`):
+    once 16a's writer has exited 0, 16b and 16c side by side as processes of
+    their own in the shards' directory ``root``, 16a's shards checked while
+    they start; then both waited for and checked, and the directory
+    removed. It launches nothing in this process: both runs train in their
+    children, on the plain route, as JAX's scripts do."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    try:
+        rc, _, writer_s = cli_finish(shards, DRESS_TIMEOUT_S)
+        require(rc == 0, f"16a: the shard writer exited {rc}")
+        data = [os.path.join(root, "dress", "0000[0-1].tar"), os.path.join(root, "dress", "00002.tar")]
+        runs = {}
+        try:
+            for key, script, args in (("compare", "scripts/torch_compare_towers.py", COMPARE_ARGS),
+                                      ("rehearsal", "scripts/torch_dress_rehearsal.py", DRESS_ARGS)):
+                argv = ["--data", data[0], "--val-data", data[1], "--cache-dir", os.path.join(root, f"cache_{key}"),
+                        *args, *DRESS_DEVICE]
+                runs[key] = cli_start(script_cmd(script, argv, DRESS_KW.get(key)), root, os.path.join(root, key))
+            out = {"shards": dress_shards_checked(root, writer_s)}
+            done = {}
+            for key, run in runs.items():  # (rc, stdout and standard error, seconds)
+                rc, stdout, sec = cli_finish(run, DRESS_TIMEOUT_S)
+                with open(os.path.join(root, key)) as f:
+                    done[key] = (rc, stdout + f.read(), sec)
+        finally:
+            for run in runs.values():
+                cli_stop(run)
+        out["rehearsal"] = rehearsal_checked(root, *done["rehearsal"])
+        out["compare"] = compare_checked(root, *done["compare"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out}")
+    return out
+
+
+def dress_finish(counters, run):
+    """Phase 16's thread joined, every launch counter set to 0 first and read
+    after: nothing launched in this process while it was waited for."""
+    counters.reset()
+    out, out["wait_s"] = run.result()
+    out["launches"] = counters.read()
+    require(not any(out["launches"].values()), f"16: this process launched {out['launches']}")
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5329,13 +5774,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     # the validators' remote datasets: skip without a DNS probe, here and in every subprocess
     os.environ["CLIP_MIXER_OFFLINE"] = "1"
+    import atexit
+
+    adopt_orphans()
+    atexit.register(stop_all_children)  # the first registered runs last
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     t_run = time.perf_counter()
+    dress_root, dress_shards = dress_shards_start()  # 16a's shards, written on the host beside phases 1-15
 
     t0 = time.perf_counter()
     _build.build(_build.all_sources())
     build_s = time.perf_counter() - t0
+    gate_images_start()  # phases 6-8's gate image sets, drawn on the host beside phases 1-5
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "wgmma", "setmaxnreg")) or "error" in line.lower():
@@ -5388,6 +5839,7 @@ def main() -> int:
             "the ViT serving paths never launched preprocess")
     rn = rn_path(dev, counters)
     emit({"resnet": rn})
+    _GATE_IMAGES.clear()  # the last phase that reads the gate image sets
     require(rn["launches"]["rn50_serving"]["preprocess"] > 0, "the RN50 serving path never launched preprocess")
     for row in kernels:  # each kernel's launches in phase 8's parts
         row["rn_launches"] = {k: v[row["name"]] for k, v in rn["launches"].items()}
@@ -5398,10 +5850,12 @@ def main() -> int:
     for row in kernels:  # each kernel's launches over phase 9d's requests through the CLI
         row["cli_launches"] = load_cli["launches"][row["name"]]
     evals = eval_path(dev, counters)
-    emit({"evals": evals})
     for row in kernels:  # each kernel's launches in phase 10's parts
         row["eval_launches"] = {k: v[row["name"]] for k, v in evals["launches"].items()}
+    # 12c and 13c's processes, after 10c's, beside phase 11 and 12a, 12b and 12d
+    drills = Background(drills_after, evals["pending"][0], dev)
     frozen = frozen_path(dev, counters, tokenizer_build)
+    emit({"evals": eval_finish(evals)})  # 10c ran beside phase 11
     emit({"frozen_tokenizer": frozen["tokenizer"]})
     require(frozen["launches"]["fused_mlp"]["ln_mlp"] > 0, "the fused_mlp programs never launched ln_mlp")
     require(frozen["launches"]["fused_block"]["fused_mixer_block"] > 0,
@@ -5409,7 +5863,7 @@ def main() -> int:
     for row in kernels:  # each kernel's launches by the frozen programs of phase 11, added to the path's
         row["frozen_launches"] = {k: v[row["name"]] for k, v in frozen["launches"].items()}
         row["launches"] += sum(row["frozen_launches"].values())
-    dp = dp_path(dev, counters)
+    dp = dp_path(dev, counters, drills)
     emit({"dp": {k: v for k, v in dp.items() if k not in ("train", "syncbn_siglip", "shard_cli")}})
     for part, names in (("train", ("ln_mlp", "fused_mixer_block")), ("serving", ("ln_mlp", "fused_mixer_block",
                                                                                  "preprocess"))):
@@ -5418,6 +5872,8 @@ def main() -> int:
     for row in kernels:  # each kernel's launches in phase 12's data-parallel steps and mesh serving, added
         row["dp_launches"] = {part: dp["launches"][part][row["name"]] for part in ("train", "serving")}
         row["launches"] += sum(row["dp_launches"].values())
+    free_card()
+    dress_run = Background(dress_path, dress_root, dress_shards)  # phase 16, beside phases 13-15
     shard = shard_path(dev, counters, dp["shard_cli"])
     emit({"shard": {k: v for k, v in shard.items() if k not in ("fsdp", "tp")}})
     for name in ("ln_mlp", "fused_mixer_block"):
@@ -5438,9 +5894,13 @@ def main() -> int:
     for row in kernels:  # each kernel's launches by phase 15a's serving examples, added
         row["examples_launches"] = examples["launches"][row["name"]]
         row["launches"] += row["examples_launches"]
+    dress = dress_finish(counters, dress_run)
+    emit({"dress": {**dress, "kernels": "none launched: the runs train in child processes on the plain route "
+                                        "(no --fused-mlp), as the JAX scripts do; the kernels line is phases 1-15's"}})
     emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
           "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"],
-          "pp_s": pipe["phase_s"], "examples_s": examples["phase_s"]})
+          "pp_s": pipe["phase_s"], "examples_s": examples["phase_s"], "dress_s": dress["phase_s"],
+          "dress_wait_s": dress["wait_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

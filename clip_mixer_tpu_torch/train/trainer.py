@@ -399,6 +399,9 @@ class Trainer:
                             self.writer.add_scalar("Throughput (imgs/s)", ips, step)
                             if self.verbose:
                                 print(f"step {step}: loss {float(metrics['loss']):.4f}  {ips:.0f} imgs/s")
+                        if cuda:  # this process's allocator peak so far (no JAX counterpart)
+                            self.writer.add_scalar("Peak memory (GB)",
+                                                   torch.cuda.max_memory_allocated(self.device) / 1e9, step)
                         self.writer.flush()  # metrics.jsonl stays live mid-run
                         self.save(epoch, batch_idx)
                         t0 = time.monotonic()
@@ -424,6 +427,10 @@ class Trainer:
                         return
                     if step % self.validate_every_steps == 0:
                         self.validate(step)
+                        if self._saved_step == step:
+                            # a resume starts after this step and never validates it again:
+                            # write its rows now, or a crash before the next boundary loses them
+                            self.writer.flush()
                         self._beat()  # a long validation pass is not a stall
             self._flush_metrics(pending)
             if local_stop is not None and stop_requested.is_set():
