@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
 its model loading, its serving CLI, its evals, its real-data sources, its frozen serving programs, its
 release, its C++ tokenizer, its data-parallel, sharded and pipelined training, its operations tools, its
-top-level API, its examples, its synthetic training demo and its dress-shard training runs on one CUDA card
-and check its kernels.
+top-level API, its examples, its synthetic training demo, its dress-shard training runs and its quality gates
+on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -375,6 +375,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    legs exit 0 after 8 steps with their retrieval rows at 4 and 8. The
    step times are read while 16b and phases 13-15 share the card: no limit
    is set on them.
+17. The quality gates, in this process after phase 15 (``runpy``, each
+   script's ``main``; standard output kept; every launch counter set to 0
+   before each and read after). 17a: ``scripts/torch_image_gate_stability.py``
+   on full-width Mixer-B/32 at n = 4,096 over seeds 1-2 and both front ends
+   (the image sets served by ``gate_images``, drawn once a run): two row
+   lines and a summary line a front end with the JAX script's keys, finite
+   ratios, pooled counts that add up. 17b:
+   ``scripts/torch_text_gate_stability.py`` at 3 runs of 4,096 texts (the
+   bank's 512 images from ``gate_images``): three run lines and the summary
+   line with the JAX script's keys. 17c: ``scripts/torch_acceptance.py
+   --stand-in`` in full: exit 0, all three stages run and passed. Each
+   record names the card.
 
 Every child process stays in this process's group, so a signal to the
 group reaches it; SIGTERM exits through the ``finally`` blocks, and at exit
@@ -1810,7 +1822,7 @@ INT8_CALIB_N = 128  # calibration images and captions
 INT8_GATE_N = 4096  # each gate's set: the size at which the JAX package's flip ratios are resolved
 # the gates' two large image sets (n, res, seed), drawn by child processes started after the kernels' build
 # (``synthetic_images`` loops over the images in Python: ~12-15 s a set on the card's host)
-GATE_SETS = ((INT8_GATE_N, 224, 3), (INT8_GATE_N, 256, 1))
+GATE_SETS = ((INT8_GATE_N, 224, 3), (INT8_GATE_N, 256, 1), (INT8_GATE_N, 256, 2))
 GATE_SET_WRITER = ("import sys, numpy as np; from clip_mixer_tpu_torch.evals.quant_gate import synthetic_images; "
                    "n, res, seed = map(int, sys.argv[1:4]); np.save(sys.argv[4], synthetic_images(n, res, seed=seed))")
 GATE_SET_TIMEOUT_S = 300
@@ -5756,6 +5768,139 @@ def dress_finish(counters, run):
     return out
 
 
+# ---- phase 17: the quality gates -----------------------------------------------------
+
+IMAGE_STUDY_SEEDS = 2  # 17a: seeds 1..2 (the record: 5)
+IMAGE_STUDY_RES = 256
+IMAGE_STUDY_ARGS = ["--n", str(INT8_GATE_N), "--seeds", str(IMAGE_STUDY_SEEDS), "--src-res", str(IMAGE_STUDY_RES)]
+TEXT_STUDY_RUNS = 3  # 17b (the record: 5)
+TEXT_STUDY_ARGS = ["--runs", str(TEXT_STUDY_RUNS), "--n-texts", str(INT8_GATE_N)]
+TEXT_STUDY_BANK = (512, 224, 2)  # 17b's bank: synthetic_images(512, the resolution, seed 2), phase 6's bank too
+QUALITY_SETS = [(INT8_GATE_N, IMAGE_STUDY_RES, s) for s in range(1, IMAGE_STUDY_SEEDS + 1)] + [TEXT_STUDY_BANK]
+QUALITY_DEVICE = []  # every phase-17 script's extra flags (a CPU rehearsal: --device cpu)
+QUALITY_KW = {}  # {"image" | "text": main()'s keywords} (a CPU rehearsal: small presets)
+IMAGE_ROW_KEYS = ["front_end", "seed", "flip_bf16_vs_f32", "flip_int8_vs_f32", "flip_ratio", "passed"]
+IMAGE_SUMMARY_KEYS = ["front_end", "per_seed_ratios", "ratio_min", "ratio_max", "spread", "pooled_flips_bf16",
+                      "pooled_flips_int8", "pooled_n", "pooled_ratio"]
+TEXT_ROW_KEYS = ["run", "flip_bf16_vs_f32", "flip_int8_vs_f32", "flip_ratio", "passed"]
+TEXT_SUMMARY_KEYS = ["n_texts", "runs", "ratio_min", "ratio_max", "spread", "stable"]
+
+
+def run_main(counters, rel_path, argv, **kw):
+    """A script of the checkout's ``main(argv, **kw)`` in this process, its
+    standard output kept and every launch counter set to 0 first: (its
+    result, its standard output, seconds, the launches)."""
+    import contextlib
+    import io
+    import runpy
+
+    script = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)), rel_path))
+    buf = io.StringIO()
+    counters.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = script["main"](argv, **kw)
+    torch.cuda.synchronize()
+    out, s, launches = buf.getvalue(), time.perf_counter() - t0, counters.read()
+    free_card()
+    log(f"phase 17 {rel_path} ({s:.1f} s, launches {launches}): {out.strip()[-2000:]}")
+    return result, out, s, launches
+
+
+def printed_objects(out, what):
+    """The JSON objects of a script's standard output, one a line."""
+    lines = [line for line in out.splitlines() if line.startswith("{")]
+    require(lines, f"{what}: no JSON line in {out[-2000:]!r}")
+    return [json.loads(line) for line in lines]
+
+
+def gate_row_checked(row, keys, what):
+    require(list(row) == keys and all(math.isfinite(row[k]) for k in ("flip_bf16_vs_f32", "flip_int8_vs_f32",
+                                                                      "flip_ratio")), f"{what}: {row}")
+
+
+def image_study(counters):
+    """17a: the image study at n = INT8_GATE_N over IMAGE_STUDY_SEEDS seeds and
+    both front ends, its sets from ``gate_images``: the JAX script's lines,
+    the summary's pooled counts the rows' flips added up."""
+    rec, out, s, launches = run_main(counters, "scripts/torch_image_gate_stability.py",
+                                     IMAGE_STUDY_ARGS + QUALITY_DEVICE, draw=gate_images, **QUALITY_KW.get("image", {}))
+    lines = printed_objects(out, "17a")
+    fes = ["planar", "nhwc"]
+    require(len(lines) == len(fes) * (IMAGE_STUDY_SEEDS + 1), f"17a: {len(lines)} lines")
+    summaries = {}
+    for i, fe in enumerate(fes):
+        block = lines[i * (IMAGE_STUDY_SEEDS + 1):(i + 1) * (IMAGE_STUDY_SEEDS + 1)]
+        for seed, row in enumerate(block[:-1], start=1):
+            gate_row_checked(row, IMAGE_ROW_KEYS, f"17a {fe} seed {seed}")
+            require((row["front_end"], row["seed"]) == (fe, seed), f"17a: {row}")
+        summary = block[-1]
+        require(list(summary) == IMAGE_SUMMARY_KEYS and summary["front_end"] == fe, f"17a: {summary}")
+        rows = rec["front_ends"][fe]["rows"]
+        require(summary["pooled_flips_bf16"] == sum(r["flips_bf16"] for r in rows)
+                and summary["pooled_flips_int8"] == sum(r["flips_int8"] for r in rows)
+                and summary["pooled_n"] == INT8_GATE_N * IMAGE_STUDY_SEEDS, f"17a: {summary} against {rows}")
+        summaries[fe] = summary
+    require(rec["device"] == torch.cuda.get_device_name(0) and rec["tf32"] is False, f"17a: {rec['device']}")
+    return {"s": s, "launches": launches, "summaries": summaries,
+            "rows": {fe: [{k: r[k] for k in ("flips_bf16", "flips_int8", "flip_ratio", "passed")}
+                          for r in rec["front_ends"][fe]["rows"]] for fe in fes}}
+
+
+def text_study(counters):
+    """17b: the text study, TEXT_STUDY_RUNS runs at INT8_GATE_N texts, the
+    bank's images from ``gate_images``: the JAX script's lines."""
+    rec, out, s, launches = run_main(counters, "scripts/torch_text_gate_stability.py",
+                                     TEXT_STUDY_ARGS + QUALITY_DEVICE, draw=gate_images, **QUALITY_KW.get("text", {}))
+    lines = printed_objects(out, "17b")
+    require(len(lines) == TEXT_STUDY_RUNS + 1, f"17b: {len(lines)} lines")
+    for r, row in enumerate(lines[:-1]):
+        gate_row_checked(row, TEXT_ROW_KEYS, f"17b run {r}")
+        require(row["run"] == r, f"17b: {row}")
+    summary = lines[-1]
+    require(list(summary) == TEXT_SUMMARY_KEYS and summary["runs"] == TEXT_STUDY_RUNS
+            and summary["n_texts"] == INT8_GATE_N, f"17b: {summary}")
+    require(rec["device"] == torch.cuda.get_device_name(0) and rec["tf32"] is False, f"17b: {rec['device']}")
+    return {"s": s, "launches": launches, "summary": summary,
+            "rows": [{k: r[k] for k in ("flips_bf16", "flips_int8", "flip_ratio", "passed")} for r in rec["rows"]]}
+
+
+def acceptance_standin(counters, root):
+    """17c: ``scripts/torch_acceptance.py --stand-in`` in full: exit 0, its
+    record's three stages run and passed."""
+    path = os.path.join(root, "ACCEPTANCE_TORCH.json")
+    rc, out, s, launches = run_main(counters, "scripts/torch_acceptance.py",
+                                    ["--stand-in", "--out", path] + QUALITY_DEVICE)
+    with open(path) as f:
+        rec = json.load(f)
+    require(rc == 0 and rec["passed"] and rec["stages_executed"] == 3, f"17c: exit {rc}, {rec}")
+    require(all(rec[k]["passed"] for k in ("demo_probs", "imagenet", "int8_gate")), f"17c: {rec}")
+    require(rec["device"] == torch.cuda.get_device_name(0) and rec["tf32"] is False, f"17c: {rec['device']}")
+    return {"s": s, "launches": launches, "line": printed_objects(out, "17c")[-1],
+            "demo_max_abs_diff": rec["demo_probs"]["max_abs_diff_vs_oracle"],
+            "imagenet": {k: rec["imagenet"][k] for k in ("top1_ours", "top5_ours", "delta_pct")},
+            "int8_gate": {k: rec["int8_gate"][k] for k in ("n", "flips_bf16", "flips_int8", "flip_ratio", "passed")}}
+
+
+def quality_path(counters):
+    """Phase 17: the two gate-stability studies and the acceptance gate's
+    stand-in run, one after another in this process; the launches are
+    each script's own, added up."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        out = {"image_study": image_study(counters), "text_study": text_study(counters),
+               "acceptance": acceptance_standin(counters, root)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {name: sum(part["launches"][name] for part in out.values()) for name in counters.read()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5768,10 +5913,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from clip_mixer_tpu_torch.device import no_tf32
     from clip_mixer_tpu_torch.ops.kernels import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     # the validators' remote datasets: skip without a DNS probe, here and in every subprocess
     os.environ["CLIP_MIXER_OFFLINE"] = "1"
     import atexit
@@ -5839,7 +5984,8 @@ def main() -> int:
             "the ViT serving paths never launched preprocess")
     rn = rn_path(dev, counters)
     emit({"resnet": rn})
-    _GATE_IMAGES.clear()  # the last phase that reads the gate image sets
+    for key in set(_GATE_IMAGES) - set(QUALITY_SETS):  # phase 8 is the last to read the others
+        del _GATE_IMAGES[key]
     require(rn["launches"]["rn50_serving"]["preprocess"] > 0, "the RN50 serving path never launched preprocess")
     for row in kernels:  # each kernel's launches in phase 8's parts
         row["rn_launches"] = {k: v[row["name"]] for k, v in rn["launches"].items()}
@@ -5894,13 +6040,15 @@ def main() -> int:
     for row in kernels:  # each kernel's launches by phase 15a's serving examples, added
         row["examples_launches"] = examples["launches"][row["name"]]
         row["launches"] += row["examples_launches"]
+    quality = quality_path(counters)
+    emit({"quality": quality})
     dress = dress_finish(counters, dress_run)
     emit({"dress": {**dress, "kernels": "none launched: the runs train in child processes on the plain route "
                                         "(no --fused-mlp), as the JAX scripts do; the kernels line is phases 1-15's"}})
     emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
           "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"],
-          "pp_s": pipe["phase_s"], "examples_s": examples["phase_s"], "dress_s": dress["phase_s"],
-          "dress_wait_s": dress["wait_s"]})
+          "pp_s": pipe["phase_s"], "examples_s": examples["phase_s"], "quality_s": quality["phase_s"],
+          "dress_s": dress["phase_s"], "dress_wait_s": dress["wait_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ the CPU without being asked.
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -28,3 +29,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def compute_dtype(name: Optional[str]) -> torch.dtype:
     """``CLIPConfig.compute_dtype`` name -> torch dtype."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
+
+
+def no_tf32() -> None:
+    """f32 matmuls and convolutions in full f32 on the card: PyTorch's
+    default lets cuDNN's convolutions run in TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def card(device: torch.device):
+    """(name, power limit) of ``device``: the card's, as ``nvidia-smi
+    --query-gpu=name,power.limit`` reads them; (the device, None) off a card."""
+    if device.type != "cuda":
+        return str(device), None
+    name = torch.cuda.get_device_name(device)
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout
+        power = out.strip().splitlines()[device.index or 0].split(",")[-1].strip()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        power = None
+    return name, power

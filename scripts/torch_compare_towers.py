@@ -41,7 +41,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "scripts"))
 
-from torch_dress_rehearsal import card, peak_mem_gb, read_metrics, thin  # noqa: E402 (the same distillation)
+from torch_dress_rehearsal import peak_mem_gb, read_metrics, thin  # noqa: E402 (the same distillation)
 
 PRESET_TWINS = ("mixer-b32", "transformer-b32")
 SOURCE_HW = (256, 256)  # the shards' images, resized in the timed step
@@ -233,7 +233,7 @@ def main(argv=None, presets=None) -> int:
     args = p.parse_args(argv)
     args.presets = dict(presets or {})
 
-    from clip_mixer_tpu_torch.device import resolve_device
+    from clip_mixer_tpu_torch.device import card, resolve_device
 
     device = resolve_device(args.device)  # no card and no --device: raise before anything runs
     timed = [args.presets.get(t, t) for t in PRESET_TWINS]

@@ -126,23 +126,6 @@ def peak_mem_gb(series):
     return max(peaks) if peaks else None
 
 
-def card(device):
-    """(name, power limit) of ``device``: the card's, as ``nvidia-smi
-    --query-gpu=name,power.limit`` reads them; (the device, None) off a card."""
-    import torch
-
-    if device.type != "cuda":
-        return str(device), None
-    name = torch.cuda.get_device_name(device)
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60, check=True).stdout
-        power = out.strip().splitlines()[device.index or 0].split(",")[-1].strip()
-    except (OSError, subprocess.SubprocessError, IndexError):
-        power = None
-    return name, power
-
-
 def main(argv=None, preset: str = "mixer-b32") -> int:
     """Run the rehearsal as the command line says and write its record.
     ``preset`` lets a test run the same composition at a small model."""
@@ -187,7 +170,7 @@ def main(argv=None, preset: str = "mixer-b32") -> int:
     p.add_argument("--device", default=None, help="torch device (default: cuda, which must exist)")
     args = p.parse_args(argv)
 
-    from clip_mixer_tpu_torch.device import resolve_device
+    from clip_mixer_tpu_torch.device import card, resolve_device
 
     device = resolve_device(args.device)  # no card and no --device: raise before anything runs
     run_dir = Path("outputs") / args.run_name

@@ -30,6 +30,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from clip_mixer_tpu_torch import CLIP, PRESETS  # noqa: E402
 from clip_mixer_tpu_torch.config import TrainConfig  # noqa: E402
+from clip_mixer_tpu_torch.device import no_tf32  # noqa: E402
 from clip_mixer_tpu_torch.ops.kernels.mixer_block import route_towers  # noqa: E402
 from clip_mixer_tpu_torch.parallel.train_step import init_train_state, make_train_step  # noqa: E402
 from clip_mixer_tpu_torch.train.optimizer import make_optimizer  # noqa: E402
@@ -132,7 +133,7 @@ def main(argv=None) -> int:
         print("torch_train_profile: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32()
     for route in args.routes:
         r = profile_route(route, dev, args.batch, args.iters, args.top, args.accum_steps, args.remat)
         print(json.dumps(r), flush=True)
