@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving, training, trainer, int8 serving, transformer (ViT) and ResNet paths,
 its model loading, its serving CLI, its evals, its real-data sources, its frozen serving programs, its
 release, its C++ tokenizer, its data-parallel, sharded and pipelined training, its operations tools, its
-top-level API, its examples, its synthetic training demo, its dress-shard training runs and its quality gates
-on one CUDA card and check its kernels.
+top-level API, its examples, its synthetic training demo, its dress-shard training runs, its quality gates,
+its serving under concurrent clients and its two largest presets on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -387,6 +387,33 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    line with the JAX script's keys. 17c: ``scripts/torch_acceptance.py
    --stand-in`` in full: exit 0, all three stages run and passed. Each
    record names the card.
+18. Serving under concurrent clients and the big presets. 18a:
+   ``scripts/torch_serving_bench.py --quick`` on two of 16a's shards, a
+   process of its own in a background thread beside phases 4-17 (its
+   servers its children; every launch counter set to 0 before the thread
+   is joined and read after): the seed-0 ``mixer-b32`` saved, calibrated
+   on the shards and frozen twice, the cold-start probes (live and frozen) and the four legs
+   (live and frozen, bf16 and int8) of seven endpoint loads each, driven by
+   concurrent client threads with the shards' JPEGs, then the raw engine
+   without HTTP: every leg's loads and both probes with the JAX script's
+   keys, each load's requests > 0 with no error, skip or failed request;
+   ``/healthz`` naming the int8 paths on the int8 legs and ``frozen`` on the
+   frozen ones; each server's ``/metrics`` counting at least the client's
+   requests, with no error; the raw baseline with both modes' keys; the
+   card named. 18b: ``scripts/torch_bench_big_presets.py``, ``vit-l14-336``
+   then ``rn50x64``, each in a child process of its own (as the script's
+   ``--preset all`` runs them; its launch counters set to 0 before the
+   script's ``main`` and read after it) in a background thread beside
+   phase 11, whose card time is mostly idle (exports, server start-ups),
+   each at full width from its seed-0 draw at ``--infer-batch 64`` and
+   ``--gate-n 256``, ``--hbm-gib`` 8 and 16
+   (plans that train in seconds: 64 x 8 with GradCache, and JAX's record
+   batch 16 x 1), never more than ``torch.cuda.mem_get_info`` leaves free:
+   both inference times finite, the gate with the JAX script's keys,
+   ``params_m`` the JAX record's (427.9, 623.7), the train leg a finite
+   first loss or an ``oom`` beside its plan, the allocator's peak recorded.
+   Both launch none of our kernels (the plain route, the torch front end),
+   counted.
 
 Every child process stays in this process's group, so a signal to the
 group reaches it; SIGTERM exits through the ``finally`` blocks, and at exit
@@ -5901,6 +5928,190 @@ def quality_path(counters):
     return out
 
 
+# ---- phase 18: serving under concurrent clients, the big presets ---------------------
+
+SERVING_DEVICE = []  # 18a's extra flags (a CPU rehearsal: --device cpu)
+SERVING_KW = {}  # 18a's main() keywords (a CPU rehearsal: {"preset": "mixer-debug"}); else the command line
+SERVING_TIMEOUT_S = 900
+SERVING_LEGS = ("live_bf16", "live_int8", "frozen_bf16", "frozen_int8")
+# each endpoint load of a leg and the server path it posts to; the stats' keys are the JAX script's
+SERVING_LOADS = {"encode_image_b32": "/encode_image", "encode_image_b128": "/encode_image",
+                 "encode_image_b1_coalesced_8clients": "/encode_image", "encode_text_b64": "/encode_text",
+                 "classify_b32_top5": "/classify", "retrieve_b8_top5": "/retrieve", "similarity_8x8": "/similarity"}
+SERVING_STATS_KEYS = ["requests", "concurrent_wall_s", "items_per_sec", "p50_ms", "p99_ms"]
+COLD_KEYS = ["startup_to_healthz_s", "first_request_b32_s", "second_request_b32_s", "first_request_b1_s"]
+RAW_KEYS = [f"{mode}_{k}" for mode in ("bf16", "int8") for k in (
+    "batch128_imgs_per_sec", "call_overhead_ms", "coalesced_reqs_per_sec", "coalesced_p50_ms", "coalesced_p99_ms",
+    "text64_texts_per_sec")]
+BIG_PRESETS = {"vit-l14-336": 427.9, "rn50x64": 623.7}  # params_m in the JAX package's BIG_PRESETS.json
+BIG_ARGS = ["--infer-batch", "64", "--gate-n", "256"]  # 18b (the record: --gate-n 1024)
+# 18b's --hbm-gib, each at most what the card leaves free: plans that train in seconds. The ViT's 8 GiB picks
+# 64 x 8 (GradCache, the path of JAX's 16 GiB record), the ResNet's 16 GiB (a v5e) JAX's record batch, 16 x 1;
+# BIG_PRESETS_TORCH.json holds the card's own 80 GiB plans
+BIG_HBM_GIB = {"vit-l14-336": 8.0, "rn50x64": 16.0}
+BIG_DEVICE = []  # 18b's extra flags (a CPU rehearsal: --device cpu)
+BIG_CFG = {}  # {preset: the preset's replace() keywords for a small config} (a CPU rehearsal); else the preset
+BIG_TIMEOUT_S = 600  # a preset's child
+# runs big_preset_child(preset, config keywords as JSON, *the script's arguments) in a child
+BIG_RUNNER = ("import json, sys, chip_smoke; "
+              "sys.exit(chip_smoke.big_preset_child(sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]))")
+BIG_GATE_KEYS = ["n", "flips_bf16", "flips_int8", "flip_bf16_vs_f32", "flip_int8_vs_f32", "flip_bf16_ci95",
+                 "flip_int8_ci95", "flip_ratio", "flip_ratio_ci_low", "flip_ratio_ci_high", "max_flip_ratio",
+                 "margin_to_budget", "agreement_int8_vs_bf16", "min_cosine_int8_vs_f32", "passed"]
+
+
+def serving_checked(path, rc, text, s):
+    """18a's record: exit 0; every leg's loads and both cold probes with the
+    JAX script's keys and no failed request; the legs' paths; each server's
+    counts; the raw baseline's keys; the card named."""
+    require(rc == 0, f"18a: the serving bench exited {rc}: {text[-3000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    require(rec["config"]["quick"] and rec["device"] == torch.cuda.get_device_name(0), f"18a: {rec['config']}")
+    for probe in ("live_bf16", "frozen_bf16"):
+        got = rec["cold_start"][probe]
+        require(list(got) == COLD_KEYS and all(math.isfinite(v) and v >= 0 for v in got.values()), f"18a {probe}: {got}")
+    out = {"s": s, "cold_start": {k: rec["cold_start"][k] for k in ("live_bf16", "frozen_bf16")}}
+    for leg in SERVING_LEGS:
+        r = rec[leg]
+        health = r["healthz"]
+        int8 = leg.endswith("int8")
+        require(health["paths"] == ({"image": "int8", "text": "int8"} if int8 else {"image": "float", "text": "float"})
+                and health["frozen"] is leg.startswith("frozen"), f"18a {leg}: /healthz {health}")
+        served = {}
+        for load, ep in SERVING_LOADS.items():
+            st = r[load]
+            require(list(st) == SERVING_STATS_KEYS and st["requests"] > 0, f"18a {leg} {load}: {st}")
+            served[ep] = served.get(ep, 0) + st["requests"]
+        metrics = r["server_metrics"]
+        for ep, n in served.items():
+            require(metrics[ep]["count"] >= n and metrics[ep]["errors"] == 0, f"18a {leg} {ep}: {metrics[ep]} < {n}")
+        out[leg] = {"startup_s": r["startup_seconds"], **{k: r[k]["items_per_sec"] for k in SERVING_LOADS},
+                    "b1_p50_ms": r["encode_image_b1_coalesced_8clients"]["p50_ms"]}
+    raw = rec["raw_engine_no_http"]
+    require(set(RAW_KEYS) <= set(raw) and "error" not in raw and raw["device"] == torch.cuda.get_device_name(0),
+            f"18a raw engine: {raw}")
+    out["raw_engine"] = {k: raw[k] for k in RAW_KEYS}
+    log(f"phase 18a: {out}")
+    return out
+
+
+def serving_path(shards):
+    """18a, in a background thread from phase 4 on (:class:`Background`):
+    once 16a's writer has exited 0, its first two shards copied into a
+    directory of 18a's own, where ``scripts/torch_serving_bench.py --quick``
+    runs as a process of its own (its servers its children) and writes its
+    assets; then its record checked and the directory removed. It launches
+    nothing in this process."""
+    import shutil
+    import tempfile
+
+    ended = shards[5]
+    while "t" not in ended:  # 16a's writer, which dress_path waits for too
+        time.sleep(0.5)
+    require(shards[0].returncode == 0, f"18a: the shard writer exited {shards[0].returncode}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        for name in ("00000.tar", "00001.tar"):
+            shutil.copy(os.path.join(os.path.dirname(shards[2]), "dress", name), root)
+        path = os.path.join(root, "SERVING_BENCH_TORCH.json")
+        run = cli_start(script_cmd("scripts/torch_serving_bench.py",
+                                   ["--quick", "--data", os.path.join(root, "0000[0-1].tar"), "--out", path,
+                                    *SERVING_DEVICE], SERVING_KW), root, os.path.join(root, "serving"))
+        try:
+            rc, stdout, sec = cli_finish(run, SERVING_TIMEOUT_S)
+        finally:
+            cli_stop(run)
+        with open(os.path.join(root, "serving")) as f:
+            return serving_checked(path, rc, stdout + f.read(), sec)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serving_finish(counters, run):
+    """18a's thread joined, every launch counter set to 0 first and read
+    after: nothing launched in this process while it was waited for."""
+    counters.reset()
+    out, out["wait_s"] = run.result()
+    out["launches"] = counters.read()
+    require(not any(out["launches"].values()), f"18a: this process launched {out['launches']}")
+    return out
+
+
+def big_preset_child(preset, cfg_kw, argv):
+    """18b's child process: ``scripts/torch_bench_big_presets.py``'s
+    ``main(["--preset", preset, *argv])`` (``cfg_kw``: a CPU rehearsal's
+    small config, ``PRESETS[preset].replace(**cfg_kw)``), every launch
+    counter set to 0 before it and printed after it as a JSON line."""
+    import runpy
+
+    from clip_mixer_tpu_torch import PRESETS
+
+    script = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                         "torch_bench_big_presets.py"))
+    counters = Counters()
+    counters.reset()
+    kw = {"cfg": PRESETS[preset].replace(**cfg_kw)} if cfg_kw else {}
+    rc = script["main"](["--preset", preset, *argv], **kw)
+    print(json.dumps({"launches": counters.read()}), flush=True)
+    return rc
+
+
+def big_presets_path():
+    """18b, in a background thread from phase 11 on (:class:`Background`):
+    each preset in a child process of its own (:func:`big_preset_child`, as
+    the script's ``--preset all`` runs them: the allocator's peak the
+    preset's own, the card freed when it exits), one after the other, its
+    ``--hbm-gib`` BIG_HBM_GIB's, at most what the card leaves free; each
+    record checked and the launches the child's own. It launches nothing
+    in this process."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_big_")
+    path = os.path.join(root, "BIG_PRESETS_TORCH.json")
+    out = {}
+    try:
+        for preset, params_m in BIG_PRESETS.items():
+            hbm = BIG_HBM_GIB[preset]
+            if torch.cuda.is_available():
+                hbm = min(torch.cuda.mem_get_info()[0] / (1 << 30), hbm)
+            cmd = [sys.executable, "-c", BIG_RUNNER, preset, json.dumps(BIG_CFG.get(preset, {})), *BIG_ARGS,
+                   "--hbm-gib", f"{hbm:.2f}", "--out", path, *BIG_DEVICE]
+            run = cli_start(cmd, root, os.path.join(root, preset))
+            try:
+                rc, stdout, s = cli_finish(run, BIG_TIMEOUT_S)
+            finally:
+                cli_stop(run)
+            require(rc == 0, f"18b {preset}: exit {rc}: {stdout[-3000:]}")
+            line, counted = printed_objects(stdout, f"18b {preset}")[-2:]
+            launches = counted["launches"]
+            with open(path) as f:
+                r = json.load(f)[preset]
+            log(f"18b {preset} ({s:.1f} s, launches {launches}): {json.dumps(line)}")
+            require(not any(launches.values()), f"18b {preset}: launches {launches}")
+            require(preset in BIG_CFG or r["params_m"] == params_m, f"18b {preset}: params_m {r['params_m']}")
+            for leg in ("bf16_infer", "int8_infer"):
+                require(math.isfinite(r[leg]["ms"]) and r[leg]["ms"] > 0, f"18b {preset} {leg}: {r[leg]}")
+            require(list(r["int8_gate"]) == BIG_GATE_KEYS, f"18b {preset} gate: {r['int8_gate']}")
+            step = r["train_step"]
+            require(step.get("loss_finite") is True or (step.get("oom") is True and "train_plan" in r),
+                    f"18b {preset} train: {step}")
+            require(r["device"] == torch.cuda.get_device_name(0) and (preset in BIG_CFG or "actual_peak_gib" in r["hbm"]),
+                    f"18b {preset}: {r['device']}, {r['hbm']}")
+            out[preset] = {"s": s, "hbm_gib_given": hbm, "launches": launches,
+                           **{k: r[k] for k in ("params_m", "bf16_infer", "int8_infer", "train_plan", "train_step",
+                                                "hbm", "wall_seconds")},
+                           "gate": {k: r["int8_gate"][k] for k in ("n", "flips_bf16", "flips_int8", "flip_ratio",
+                                                                   "passed")}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {name: sum(out[p]["launches"][name] for p in BIG_PRESETS) for name in launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5966,6 +6177,7 @@ def main() -> int:
     path_launches = {"ln_mlp": launches["ln_mlp"], "preprocess": launches["preprocess"],
                      "fused_mixer_block": block_launches["fused_mixer_block"]}
     kernels = time_kernels(ln_cases, pre_cases, block_cases, path_launches)
+    serving_run = Background(serving_path, dress_shards)  # 18a, beside phases 4-17, after the kernels' timing
 
     train = train_path(dev, counters)
     emit({"train": train})
@@ -6000,6 +6212,7 @@ def main() -> int:
         row["eval_launches"] = {k: v[row["name"]] for k, v in evals["launches"].items()}
     # 12c and 13c's processes, after 10c's, beside phase 11 and 12a, 12b and 12d
     drills = Background(drills_after, evals["pending"][0], dev)
+    big_run = Background(big_presets_path)  # 18b's children, beside phase 11 (the card's time there is mostly idle)
     frozen = frozen_path(dev, counters, tokenizer_build)
     emit({"evals": eval_finish(evals)})  # 10c ran beside phase 11
     emit({"frozen_tokenizer": frozen["tokenizer"]})
@@ -6042,13 +6255,20 @@ def main() -> int:
         row["launches"] += row["examples_launches"]
     quality = quality_path(counters)
     emit({"quality": quality})
+    big, big["wait_s"] = big_run.result()
+    emit({"big_presets": {**big, "kernels": "none launched: each preset's child counts its own launches (the plain "
+                                            "ViT and ResNet towers, the torch front end)"}})
     dress = dress_finish(counters, dress_run)
     emit({"dress": {**dress, "kernels": "none launched: the runs train in child processes on the plain route "
                                         "(no --fused-mlp), as the JAX scripts do; the kernels line is phases 1-15's"}})
+    serving = serving_finish(counters, serving_run)
+    emit({"serving_bench": {**serving, "kernels": "none launched in this process: the servers are children, on "
+                                                  "the plain route with the torch front end, as JAX's legs"}})
     emit({"run_s": time.perf_counter() - t_run, "load_cli_s": load_cli["phase_s"], "eval_s": evals["phase_s"],
           "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"],
           "pp_s": pipe["phase_s"], "examples_s": examples["phase_s"], "quality_s": quality["phase_s"],
-          "dress_s": dress["phase_s"], "dress_wait_s": dress["wait_s"]})
+          "big_presets_s": big["phase_s"], "big_presets_wait_s": big["wait_s"], "dress_s": dress["phase_s"], "dress_wait_s": dress["wait_s"],
+          "serving_bench_s": serving["s"], "serving_bench_wait_s": serving["wait_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

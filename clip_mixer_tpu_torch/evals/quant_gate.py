@@ -11,8 +11,7 @@ flips top-1 predictions against f32, so the gate is relative:
 
 the int8 path may add at most a bounded multiple of the top-1 instability
 bf16 numerics already introduce. The three paths run one set of weights:
-the f32 path is a second :class:`CLIP` with ``compute_dtype="float32"``
-that loads the model's state dict.
+the f32 path is a copy of the model with ``compute_dtype="float32"``.
 
 The gates take a port ``CLIP`` (the model's ``cfg`` is the config) and
 uint8 images or token ids as numpy; they run on the model's device.
@@ -20,11 +19,13 @@ uint8 images or token ids as numpy; they run on the model's device.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from clip_mixer_tpu_torch.config import CLIPConfig
 from clip_mixer_tpu_torch.device import compute_dtype
 from clip_mixer_tpu_torch.models.clip import CLIP, l2_normalize
 from clip_mixer_tpu_torch.ops.preprocess import make_batch_preprocess, normalize_images
@@ -94,10 +95,14 @@ def build_float_classifier(model, classnames: Sequence[str], templates: Sequence
 
 
 def float32_twin(model) -> CLIP:
-    """A CLIP with ``compute_dtype="float32"`` on ``model``'s device holding
-    ``model``'s weights: the gates' f32 reference path."""
-    twin = CLIP(model.cfg.replace(compute_dtype="float32"), device=model.device)
-    twin.load_state_dict(model.state_dict())
+    """A copy of ``model`` on its device, its weights in float32 and every
+    module's config with ``compute_dtype="float32"``: the gates' f32
+    reference path. A copy, not a new draw that then loads the state dict:
+    drawing a large preset on the host takes seconds."""
+    twin = copy.deepcopy(model).float()
+    for module in twin.modules():
+        if isinstance(getattr(module, "cfg", None), CLIPConfig):
+            module.cfg = module.cfg.replace(compute_dtype="float32")
     return twin.eval()
 
 
