@@ -414,6 +414,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    first loss or an ``oom`` beside its plan, the allocator's peak recorded.
    Both launch none of our kernels (the plain route, the torch front end),
    counted.
+19. The measuring scripts, in this process after phase 17 (``runpy``, each
+   script's ``main``; every launch counter set to 0 before each script and
+   read after it), at full width on small batches: ``torch_bench_loss.py``
+   and ``torch_bench_remat_policy.py`` at B = 128; ``torch_bench_rn_accum.py``
+   ``rn`` (RN50) at B = 64 and ``accum`` at (1, 128) and (4, 512), these
+   three timing chains of 1 and 3 steps; ``torch_bench_frontend_variants.py``
+   and ``torch_profile_mixer.py`` at B = 128, the variants' chains of 2 and
+   8; ``torch_bench_transfer.py`` at
+   its full 308 MB batch; ``torch_bench_tokenizer.py`` at n = 4,096 over the
+   dress shards' captions; ``torch_bench_input.py`` at ``BENCH_INPUT_N=128``.
+   Each prints its JAX counterpart's keys with finite, positive times and
+   names the card; the profile's mirror check passes, every ``cos_vs_f32``
+   and ``cosine_min`` is finite, the tokenizer's two legs agree (its oracle
+   absent, said so), and none launches our kernels (the plain route, the
+   torch front end, as JAX's scripts), counted.
 
 Every child process stays in this process's group, so a signal to the
 group reaches it; SIGTERM exits through the ``finally`` blocks, and at exit
@@ -5813,10 +5828,11 @@ TEXT_ROW_KEYS = ["run", "flip_bf16_vs_f32", "flip_int8_vs_f32", "flip_ratio", "p
 TEXT_SUMMARY_KEYS = ["n_texts", "runs", "ratio_min", "ratio_max", "spread", "stable"]
 
 
-def run_main(counters, rel_path, argv, **kw):
+def run_main(counters, rel_path, argv, phase="17", **kw):
     """A script of the checkout's ``main(argv, **kw)`` in this process, its
     standard output kept and every launch counter set to 0 first: (its
-    result, its standard output, seconds, the launches)."""
+    result, its standard output, seconds, the launches); logged under
+    ``phase``."""
     import contextlib
     import io
     import runpy
@@ -5830,7 +5846,7 @@ def run_main(counters, rel_path, argv, **kw):
     torch.cuda.synchronize()
     out, s, launches = buf.getvalue(), time.perf_counter() - t0, counters.read()
     free_card()
-    log(f"phase 17 {rel_path} ({s:.1f} s, launches {launches}): {out.strip()[-2000:]}")
+    log(f"phase {phase} {rel_path} ({s:.1f} s, launches {launches}): {out.strip()[-2000:]}")
     return result, out, s, launches
 
 
@@ -6112,6 +6128,163 @@ def big_presets_path():
     return out
 
 
+# ---- phase 19: the measuring scripts ---------------------------------------------------
+
+BENCH_DEVICE = []  # every phase-19 script's extra flags (a CPU rehearsal: --device cpu)
+BENCH_KW = {}  # {script: main()'s keywords} (a CPU rehearsal: small configs); else these sizes
+BENCH_B = 128  # loss, remat, the variants and the profile (the scripts': 1,024 / 512)
+BENCH_RN_B = 64  # the rn mode (the script's: 256)
+BENCH_ACCUM = ((1, 128), (4, 512))  # the accum mode's (accum, batch) (the script's: up to (4, 4096))
+BENCH_CHAIN = (2, 8)  # the variants' chain lengths (the script's: 5 and 45)
+BENCH_STEP_CHAIN = (1, 3)  # the loss, remat and accum chains (the scripts': 3 and 13; 2 and 8)
+BENCH_TOKENIZER_N = 4096  # the record: 32,768
+BENCH_INPUT_N = 128  # the script's default: 512
+STEP_TIMES = ("ms_per_step", "imgs_per_sec")  # the loss, remat and accum records' times
+LOSS_LINE_KEYS = ["loss", "batch", "ms_per_step", "imgs_per_sec"]
+REMAT_LINE_KEYS = ["policy", "batch", "accum", "ms_per_step", "imgs_per_sec"]
+RN_KEYS = ["model", "batch", "bf16_imgs_per_sec", "int8_imgs_per_sec", "speedup", "cosine_min", "device",
+           "power_limit"]
+VARIANT_NAMES = ["v0_shipped", "v1_bf16_resize", "v2_planar_bf16", "v3_planar_int8", "v4_planar_fused_transpose"]
+VARIANT_KEYS = ["ms_per_batch", "ms_runs", "imgs_per_sec", "cos_vs_f32"]
+PROFILE_KEYS = ["batch", "e2e_ms", "token_mix_ms", "channel_mix_ms", "other_ms", "token_mix_pct",
+                "imgs_per_sec_full", "device", "power_limit"]
+TRANSFER_DETAIL_KEYS = ["runs_mb_per_s", "batch_mb", "device", "implied_imgs_per_sec_at_b2048", "power_limit", "copy",
+                        "pageable_mb_per_s", "pageable_runs_mb_per_s"]
+TOKENIZER_LEG_KEYS = ["n_captions", "caption_source", "oracle_cps", "python_cps", "cpp_cold_cps", "cpp_warm_cps",
+                      "seconds", "speedup_cpp_cold_vs_python", "speedup_cpp_warm_vs_python",
+                      "speedup_cpp_cold_vs_oracle", "speedup_python_vs_oracle"]
+INPUT_KEYS = ["imgs_per_sec", "n_images", "host_cores", "note", "device", "power_limit"]
+
+
+def positive(v) -> bool:
+    return isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+
+
+def bench_script(counters, name, rel_path, argv, **kw):
+    """One phase-19 script through :func:`run_main`: (its result, its JSON
+    lines, seconds); none of our kernels launched, the card named."""
+    rec, out, s, launches = run_main(counters, rel_path, argv + BENCH_DEVICE, phase="19",
+                                     **{**kw, **BENCH_KW.get(name, {})})
+    require(not any(launches.values()), f"19 {name}: launches {launches}")
+    lines = printed_objects(out, f"19 {name}")
+    named = rec.get("detail", rec)  # the transfer line names the card in its detail, as JAX's
+    require(named["device"] == torch.cuda.get_device_name(0) and "power_limit" in named, f"19 {name}: {rec}")
+    return rec, lines, s
+
+
+def bench_train_scripts(counters):
+    """19: the loss, remat and rn / accum scripts."""
+    out = {}
+    rec, lines, s = bench_script(counters, "loss", "scripts/torch_bench_loss.py", ["--batch", str(BENCH_B)],
+                                 chain=BENCH_STEP_CHAIN)
+    require([list(x) for x in lines[:-1]] == [LOSS_LINE_KEYS] * 2
+            and list(rec) == ["preset", "batch", "device", "power_limit", "results"], f"19 loss: {lines}")
+    require(list(rec["results"]) == ["info_nce", "siglip"]
+            and all(positive(r[k]) for r in rec["results"].values() for k in STEP_TIMES), f"19 loss: {rec}")
+    out["loss"] = {"s": s, **rec["results"]}
+
+    rec, lines, s = bench_script(counters, "remat", "scripts/torch_bench_remat_policy.py", ["--batch", str(BENCH_B)],
+                                 chain=BENCH_STEP_CHAIN)
+    require([list(x) for x in lines[:-1]] == [REMAT_LINE_KEYS] * 3
+            and list(rec) == ["preset", "batch", "accum", "device", "power_limit", "results"], f"19 remat: {lines}")
+    require(list(rec["results"]) == list(REMAT_POLICIES)
+            and all(positive(r[k]) for r in rec["results"].values() for k in STEP_TIMES), f"19 remat: {rec}")
+    out["remat"] = {"s": s, **rec["results"]}
+
+    rec, lines, s = bench_script(counters, "rn", "scripts/torch_bench_rn_accum.py", ["rn"], batch=BENCH_RN_B)
+    require(list(rec) == RN_KEYS and rec["batch"] == BENCH_RN_B and math.isfinite(rec["cosine_min"])
+            and positive(rec["bf16_imgs_per_sec"]) and positive(rec["int8_imgs_per_sec"]), f"19 rn: {rec}")
+    out["rn"] = {"s": s, **{k: rec[k] for k in RN_KEYS[2:6]}}
+
+    rec, lines, s = bench_script(counters, "accum", "scripts/torch_bench_rn_accum.py", ["accum"],
+                                 configs=BENCH_ACCUM, chain=BENCH_STEP_CHAIN)
+    keys = [f"accum{a}_batch{b}" for a, b in BENCH_ACCUM]
+    require(list(rec) == keys + ["device", "power_limit"] and [list(x) for x in lines[:-1]] == [[k] for k in keys],
+            f"19 accum: {rec}")
+    require(all(positive(rec[k][t]) for k in keys for t in STEP_TIMES)
+            and all(math.isfinite(rec[k]["loss"]) for k in keys), f"19 accum: {rec}")
+    out["accum"] = {"s": s, **{k: rec[k] for k in keys}}
+    return out
+
+
+def bench_serving_scripts(counters):
+    """19: the front-end variants and the Mixer profile."""
+    out = {}
+    rec, lines, s = bench_script(counters, "variants", "scripts/torch_bench_frontend_variants.py", [],
+                                 batch=BENCH_B, chain=BENCH_CHAIN)
+    require([list(x) for x in lines[:-1]] == [[n] for n in VARIANT_NAMES]
+            and list(rec) == ["batch", "results", "device", "power_limit"], f"19 variants: {lines}")
+    for n, r in rec["results"].items():
+        require(list(r) == VARIANT_KEYS and all(positive(r[k]) for k in ("ms_per_batch", "imgs_per_sec"))
+                and math.isfinite(r["cos_vs_f32"]), f"19 variants {n}: {r}")
+    out["variants"] = {"s": s, **{n: {k: r[k] for k in ("ms_per_batch", "cos_vs_f32")}
+                                  for n, r in rec["results"].items()}}
+
+    rec, lines, s = bench_script(counters, "profile", "scripts/torch_profile_mixer.py", [], batch=BENCH_B)
+    require(list(rec) == PROFILE_KEYS and all(positive(rec[k]) for k in ("e2e_ms", "token_mix_ms", "channel_mix_ms"))
+            and math.isfinite(rec["other_ms"]), f"19 profile: {rec}")
+    out["profile"] = {"s": s, **{k: rec[k] for k in PROFILE_KEYS[1:7]}}
+    return out
+
+
+def bench_host_scripts(counters, dress_root):
+    """19: the transfer, tokenizer and input scripts."""
+    import shutil
+    import tempfile
+
+    out = {}
+    rec, lines, s = bench_script(counters, "transfer", "scripts/torch_bench_transfer.py", [])
+    require(list(rec) == ["metric", "value", "unit", "detail"] and list(rec["detail"]) == TRANSFER_DETAIL_KEYS
+            and positive(rec["value"]) and positive(rec["detail"]["pageable_mb_per_s"]), f"19 transfer: {rec}")
+    require("pinned" in rec["detail"]["copy"], f"19 transfer: {rec['detail']}")
+    out["transfer"] = {"s": s, "mb_per_s": rec["value"], "pageable_mb_per_s": rec["detail"]["pageable_mb_per_s"],
+                       "batch_mb": rec["detail"]["batch_mb"]}
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        rec, lines, s = bench_script(
+            counters, "tokenizer", "scripts/torch_bench_tokenizer.py",
+            ["--n", str(BENCH_TOKENIZER_N), "--shards", os.path.join(dress_root, "dress", "*.tar"),
+             "--reference", os.path.join(root, "no-reference"), "--out", os.path.join(root, "tok.json")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(list(rec) == ["legs", "oracle", "device", "power_limit"] and rec["oracle"].startswith("absent")
+            and list(rec["legs"]) == ["real_captions", "diverse_captions"], f"19 tokenizer: {rec}")
+    for leg, d in rec["legs"].items():
+        require(list(d) == TOKENIZER_LEG_KEYS and d["n_captions"] == BENCH_TOKENIZER_N
+                and all(positive(d[k]) for k in ("python_cps", "cpp_cold_cps", "cpp_warm_cps"))
+                and d["oracle_cps"] is None and d["speedup_cpp_cold_vs_oracle"] is None, f"19 tokenizer {leg}: {d}")
+    require(list(lines[-1]) == ["real_captions", "diverse_captions"], f"19 tokenizer: {lines[-1]}")
+    out["tokenizer"] = {"s": s, **{leg: {k: d[k] for k in ("caption_source", "python_cps", "cpp_cold_cps",
+                                                            "cpp_warm_cps")} for leg, d in rec["legs"].items()}}
+
+    old = os.environ.get("BENCH_INPUT_N")
+    os.environ["BENCH_INPUT_N"] = str(BENCH_INPUT_N)
+    try:
+        rec, lines, s = bench_script(counters, "input", "scripts/torch_bench_input.py", [])
+    finally:
+        if old is None:
+            os.environ.pop("BENCH_INPUT_N")
+        else:
+            os.environ["BENCH_INPUT_N"] = old
+    keys = [f"{m}_{w}w" for m in ("thread", "process") for w in (1, 2, 4, 8)]
+    require(list(rec) == INPUT_KEYS and list(rec["imgs_per_sec"]) == keys and rec["n_images"] == BENCH_INPUT_N
+            and all(positive(v) for v in rec["imgs_per_sec"].values()), f"19 input: {rec}")
+    out["input"] = {"s": s, "host_cores": rec["host_cores"], **rec["imgs_per_sec"]}
+    return out
+
+
+def bench_scripts_path(counters, dress_root):
+    """Phase 19: the nine measuring scripts' eight card-side counterparts
+    (the plot script runs on the host only: its CPU test holds it), one
+    after another in this process; the launches each script's own, all 0."""
+    t_phase = time.perf_counter()
+    out = {**bench_train_scripts(counters), **bench_serving_scripts(counters),
+           **bench_host_scripts(counters, dress_root)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6255,6 +6428,9 @@ def main() -> int:
         row["launches"] += row["examples_launches"]
     quality = quality_path(counters)
     emit({"quality": quality})
+    bench = bench_scripts_path(counters, dress_root)
+    emit({"bench_scripts": {**bench, "kernels": "none launched: each script's launches counted, all 0 (the plain "
+                                                "route and the torch front end, as the JAX scripts run)"}})
     big, big["wait_s"] = big_run.result()
     emit({"big_presets": {**big, "kernels": "none launched: each preset's child counts its own launches (the plain "
                                             "ViT and ResNet towers, the torch front end)"}})
@@ -6268,7 +6444,8 @@ def main() -> int:
           "frozen_s": frozen["phase_s"], "dp_s": dp["phase_s"], "shard_s": shard["phase_s"],
           "pp_s": pipe["phase_s"], "examples_s": examples["phase_s"], "quality_s": quality["phase_s"],
           "big_presets_s": big["phase_s"], "big_presets_wait_s": big["wait_s"], "dress_s": dress["phase_s"], "dress_wait_s": dress["wait_s"],
-          "serving_bench_s": serving["s"], "serving_bench_wait_s": serving["wait_s"]})
+          "serving_bench_s": serving["s"], "serving_bench_wait_s": serving["wait_s"],
+          "bench_scripts_s": bench["phase_s"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ Counterpart of ``clip_mixer_tpu/utils/profiling.py``. :func:`trace` wraps
 ``torch.profiler`` in one documented place (a Chrome trace a step window,
 TensorBoard-readable); :func:`slope_time` and :func:`chained_train_time`
 time a loop of back-to-back steps by the slope between two chain lengths,
-which cancels the fixed cost of starting and fetching a chain; and
-:class:`StepTimer` is the imgs/s meter of the perf scripts.
+which cancels the fixed cost of starting and fetching a chain
+(:func:`update_step` and :func:`chained` build the perf scripts' chains);
+and :class:`StepTimer` is the imgs/s meter of the perf scripts.
 
 On the card a chain is timed with CUDA events around it, on the CPU with
 ``time.perf_counter``: a chain's end is the device's, not the host's
@@ -87,6 +88,45 @@ def chained_train_time(step: Callable, state, batch, n1: int = 3, n2: int = 13,
             state, _metrics = step(state, batch)
 
     return slope_time(run, n1, n2, device, warmup)
+
+
+def update_step(optimizer, logit_scale_max: float, loss_and_grads: Callable) -> Callable:
+    """``step(state, batch) -> (state, {"loss"})`` for :func:`chained_train_time`
+    from ``loss_and_grads(model, *batch) -> loss`` (its gradients left in
+    the parameters' ``.grad``): the gradients, the optimiser update and the
+    ``logit_scale`` clamp, the body of the JAX package's timed chain. Its
+    perf scripts time a step this way when the step is theirs (the resize
+    inside it, a remat policy's backward) rather than ``make_train_step``'s."""
+
+    def step(state, batch):
+        model = state.model
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss = loss_and_grads(model, *batch)
+        optimizer.update(params, {n: p.grad for n, p in params.items()}, state.opt_state)
+        with torch.no_grad():
+            model.logit_scale.clamp_(max=logit_scale_max)
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def chained(fn: Callable, images_u8: torch.Tensor) -> Callable[[int], torch.Tensor]:
+    """``run(n)`` for :func:`slope_time`: ``fn`` on ``images_u8`` n times,
+    each call's input the batch plus the previous call's result rounded to
+    uint8 (a zero: the mean of its output times 1e-9), so every call waits
+    for the one before it, as the JAX perf scripts' loop carry does."""
+
+    @torch.no_grad()
+    def run(n):
+        carry = torch.zeros((), device=images_u8.device)
+        for _ in range(n):
+            carry = fn(images_u8 + carry.to(torch.uint8)).float().mean() * 1e-9
+        return carry
+
+    return run
 
 
 class StepTimer:
